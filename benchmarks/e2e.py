@@ -3,8 +3,7 @@
 Unlike bench.py (device-only flagship step), this runs the complete System —
 extraction, tracking FSM, keyframe policy, local mapping, place recognition —
 over a 640x480 synthetic sequence and reports wall-clock frames/s plus the
-tracer's per-stage p50/p95, so host bookkeeping is measured, not guessed
-(VERDICT r2 Weak #1).
+tracer's per-stage p50/p95, so host bookkeeping is measured, not guessed.
 
 Usage: python benchmarks/e2e.py [--frames N] [--sensor mono|rgbd] [--cpu]
 """
@@ -36,14 +35,9 @@ def main():
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
         jax.config.update("jax_platforms", "cpu")
-    # persistent compile cache: repeat runs skip the 15-40s XLA compiles that
-    # otherwise dominate p95 (bucketed shapes recompile as the map grows)
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ.get("JAX_BENCH_CACHE", "/tmp/orbslam2_tpu_jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from orbslam2commentedbyxcm_tpu.utils.runtime import configure_compile_cache
+
+    configure_compile_cache()
 
     import numpy as np
 
@@ -97,14 +91,10 @@ def main():
 
     print(tracer.summary_table(), file=sys.stderr)
 
-    # -- host vs device decomposition (VERDICT r3 Missing #2) ---------------
+    # -- host vs device decomposition ---------------------------------------
     # `track_device` spans wrap the tracking stages' jitted dispatch+fetch;
     # `map_device` wraps the mapping stage's device programs. Everything else
-    # inside `tracking`/`local_mapping` is host Python bookkeeping. The
-    # projection row replaces the device time with the TPU micro-bench
-    # numbers (device-chained timing: full tracking step 0.68 ms, local BA
-    # 6.6 ms) to estimate direct-attached system throughput from MEASURED
-    # host cost, not hand-waving.
+    # inside `tracking`/`local_mapping` is host Python bookkeeping.
     st = tracer.stats()["spans"]
     recs = tracer.frame_records()
 
@@ -130,8 +120,8 @@ def main():
         return st.get(name, {}).get("total_s", 0.0)
 
     map_host_ms_per_kf = 1e3 * (tot("local_mapping") - tot("map_device")) / n_kf
-    # mapping host sub-stage decomposition (VERDICT r4 Weak #3): where the
-    # per-keyframe host milliseconds actually go
+    # mapping host sub-stage decomposition: where the per-keyframe host
+    # milliseconds actually go
     n_ins = max(st.get("local_mapping", {}).get("n", n_kf), 1)
     map_host_breakdown = {
         name.removeprefix("map_host_"): round(1e3 * tot(name) / n_ins, 2)
@@ -140,11 +130,6 @@ def main():
                      "map_host_create", "map_host_connections")
         if name in st
     }
-    # projected direct-attached latency path: measured host tracking python
-    # + the device tracking step from the TPU micro-benches (0.68 ms,
-    # extraction overlapped); mapping runs on its own worker in the async
-    # pipeline, so it bounds keyframe rate, not frame rate
-    proj_ms = host_ms + 0.68
     decomposition = {
         "track_host_ms_per_frame_median": round(host_ms, 2),
         "track_device_ms_per_frame_median_thisbackend": round(dev_ms, 2),
@@ -153,7 +138,6 @@ def main():
         "map_host_ms_per_insertion_breakdown": map_host_breakdown,
         "map_device_ms_per_kf_thisbackend": round(1e3 * tot("map_device") / n_kf, 2),
         "kf_per_frame": round(n_kf / max(args.frames, 1), 3),
-        "projected_direct_attached_fps": round(1e3 / max(proj_ms, 1e-6), 1),
     }
     print("decomposition: " + json.dumps(decomposition), file=sys.stderr)
 

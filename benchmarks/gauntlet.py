@@ -264,12 +264,9 @@ def main():
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
         jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ.get("JAX_BENCH_CACHE", "/tmp/orbslam2_tpu_jax_cache"))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from orbslam2commentedbyxcm_tpu.utils.runtime import configure_compile_cache
+
+    configure_compile_cache()
 
     names = [args.seq] if args.seq else ["orbit", "forward", "sway", "eight"]
     report = []

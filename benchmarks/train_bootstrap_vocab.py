@@ -134,7 +134,9 @@ def main():
     ap.add_argument("--target-desc", type=int, default=3_500_000)
     ap.add_argument("--max-train", type=int, default=6_000_000)
     args = ap.parse_args()
+    from orbslam2commentedbyxcm_tpu.utils.runtime import configure_compile_cache
 
+    configure_compile_cache()
     alld = gather_corpus(target_desc=args.target_desc)
     print("total descriptors:", len(alld), flush=True)
     t0 = time.perf_counter()

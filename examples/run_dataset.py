@@ -35,9 +35,9 @@ def main():
                     help="record per-frame stage timings and dump JSONL")
     args = ap.parse_args()
 
-    from orbslam2commentedbyxcm_tpu.utils.runtime import apply_env_platform
+    from orbslam2commentedbyxcm_tpu.utils.runtime import configure_compile_cache
 
-    apply_env_platform()
+    configure_compile_cache()
 
     from orbslam2commentedbyxcm_tpu.models.system import Sensor, System
     from orbslam2commentedbyxcm_tpu.utils import datasets

@@ -36,11 +36,11 @@ def main():
     ap.add_argument("--localization-only", action="store_true")
     args = ap.parse_args()
 
-    import cv2
+    from orbslam2commentedbyxcm_tpu.utils.datasets import require_cv2
+    from orbslam2commentedbyxcm_tpu.utils.runtime import configure_compile_cache
 
-    from orbslam2commentedbyxcm_tpu.utils.runtime import apply_env_platform
-
-    apply_env_platform()
+    cv2 = require_cv2("video capture")
+    configure_compile_cache()
 
     from orbslam2commentedbyxcm_tpu.models.system import Sensor, System
     from orbslam2commentedbyxcm_tpu.utils.config import load_settings

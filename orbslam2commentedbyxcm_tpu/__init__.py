@@ -1,8 +1,8 @@
-"""orbslam2commentedbyxcm_tpu — a TPU-native visual SLAM engine in JAX/XLA/Pallas.
+"""orbslam2commentedbyxcm_tpu — a visual SLAM engine in JAX/XLA/Pallas for GPUs.
 
 A from-scratch re-design of the capabilities of ORB-SLAM2 (reference:
-xcmworkharder/OrbSlam2CommentedByXcm, a commented fork of raulmur/ORB_SLAM2) for
-TPU hardware: batched ORB extraction, MXU-based Hamming matching, batched RANSAC
+xcmworkharder/OrbSlam2CommentedByXcm, a commented fork of raulmur/ORB_SLAM2) as
+batched accelerator programs: ORB extraction, matmul-based Hamming matching, batched RANSAC
 solvers, a Levenberg-Marquardt bundle-adjustment engine with Schur complement
 expressed in XLA, binary bag-of-words place recognition, and a host-side
 tracking / local-mapping / loop-closing pipeline over a functional map state.

@@ -9,7 +9,7 @@ Re-creates the reference's GBA thread model (src/LoopClosing.cc):
     map lock once the solve finishes, with the correction propagated through
     the spanning tree to keyframes created while GBA ran (:709-815).
 
-TPU re-design: the solve is the batched Schur-complement LM of
+Batched re-design: the solve is the batched Schur-complement LM of
 ops/optim.bundle_adjustment, dispatched in fixed-size iteration chunks so the
 stop flag is polled between device calls (g2o's per-iteration force-stop
 check, core/sparse_optimizer.cpp). The map snapshot is taken under the map

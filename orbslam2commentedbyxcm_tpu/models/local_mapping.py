@@ -187,9 +187,8 @@ def triangulate_and_check(
 
 
 # The whole mapping triangulation stage runs as ONE device program over the
-# stacked (<= 10) covisible neighbors — per-dispatch latency (RPC on hosted
-# devices, ~50-100 us even direct-attached) otherwise dominates the mapping
-# stage. The keyframe-side arguments are broadcast (in_axes=None), the
+# stacked (<= 10) covisible neighbors — per-dispatch latency otherwise
+# dominates the mapping stage. The keyframe-side arguments are broadcast (in_axes=None), the
 # neighbor side is batched, and the match->triangulation gathers stay on
 # device.
 @jax.jit

@@ -8,7 +8,7 @@ compute is one jitted device program over fixed-capacity arrays:
 
   * projection search (SearchByProjection, src/ORBmatcher.cc:61/:1620) is a
     single device kernel: project -> frustum/scale/view-angle gates -> masked
-    MXU Hamming -> per-feature argmin  (`project_and_match`)
+    matmul Hamming -> per-feature argmin  (`project_and_match`)
   * motion-only BA is ops/optim.pose_optimization
   * two-view bootstrap is ops/twoview.initialize_two_view
 
@@ -86,7 +86,7 @@ def project_and_match(
     source frame/keyframe).
     """
     r = t_cw[:3, :3]
-    pc = pt_xyz @ r.T + t_cw[:3, 3]
+    pc = jnp.matmul(pt_xyz, r.T, precision="highest") + t_cw[:3, 3]
     z = pc[:, 2]
     z_ok = z > 0.05
     zs = jnp.where(z_ok, z, 1.0)
@@ -94,7 +94,7 @@ def project_and_match(
     v = fy * pc[:, 1] / zs + cy
     in_img = (u >= 0) & (u < width) & (v >= 0) & (v < height)
 
-    cam_center = -r.T @ t_cw[:3, 3]
+    cam_center = -jnp.matmul(r.T, t_cw[:3, 3], precision="highest")
     po = pt_xyz - cam_center
     dist = jnp.linalg.norm(po, axis=-1)
     band = (dist >= 0.8 * pt_dmin) & (dist <= 1.2 * pt_dmax)
@@ -133,7 +133,7 @@ def project_and_match(
     # best (strict tie-break by feature index) — duplicate assignments inflate
     # covisibility weights and double-count BA edges. Implemented as a masked
     # min over the already-materialized (P, N) distance matrix rather than a
-    # segment_min scatter (TPU serializes scatters: measured 3 ms -> ~0).
+    # segment_min scatter.
     n_feat = feat_desc.shape[0]
     feat_iota = jnp.arange(n_feat, dtype=jnp.float32)
     key = jnp.where(ok, best_d + feat_iota * 1e-5, jnp.inf)

@@ -17,18 +17,28 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 
 
 def _build(name: str) -> str | None:
+    """Path of lib<name>.so, built from <name>.cpp unless an up-to-date build
+    is already there. The libraries are never committed (.gitignore), so each
+    checkout builds its own from the sources beside them. The compiler writes
+    to a private temporary name that is renamed into place, so processes that
+    build at once never load a half-written library."""
     src = os.path.join(_DIR, f"{name}.cpp")
     lib = os.path.join(_DIR, f"lib{name}.so")
     if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
         return lib
+    tmp = f"{lib}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", lib],
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src, "-o", tmp],
             check=True, capture_output=True, timeout=120,
         )
+        os.replace(tmp, lib)
         return lib
     except (subprocess.SubprocessError, FileNotFoundError):
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")

@@ -4,8 +4,8 @@ Replacement for DBoW2 (Thirdparty/DBoW2, SURVEY.md §2.2): the k^L vocabulary
 tree (TemplatedVocabulary.h) becomes packed arrays — per-node descriptors,
 children indices, word weights — and `transform` (TemplatedVocabulary.h:1129,
 the per-descriptor tree descent) becomes L batched gather+Hamming-argmin
-steps over all descriptors at once (MXU-friendly: each level is one
-(N, k)-candidate masked Hamming).
+steps over all descriptors at once (each level is one (N, k)-candidate
+masked Hamming).
 
 Also provides on-device hierarchical binary k-means training (FORB::meanValue
 bit-majority + Hamming assignment) since the reference's ORBvoc.txt artifact
@@ -266,7 +266,7 @@ def _descend(desc_j, node_desc_j, children_j, depth: int, levelsup: int):
         cd = node_desc_j[ch_safe]                 # (N, k, 8)
         # XOR + popcount Hamming: O(N*k*8) u32 intermediates instead of the
         # unpack-to-bits (N, k, 256) float tensors — the descent is
-        # gather-bound, not MXU-bound, and this keeps million-descriptor
+        # gather-bound, not matmul-bound, and this keeps million-descriptor
         # training corpora in memory
         x = desc_j[:, None, :] ^ cd               # (N, k, 8)
         d = jnp.sum(jax.lax.population_count(x), axis=-1).astype(jnp.int32)

@@ -1,17 +1,14 @@
 """Batched ORB descriptor + orientation from narrow per-keypoint windows.
 
 The reference computes IC_Angle + computeOrbDescriptor per keypoint over the
-blurred image (src/ORBextractor.cc:59-175, :1490-1503). The original batched
-XLA formulation here gathered full-width (N, 48, W) row blocks and built
-(N, 512, 48) f32 one-hot sampling tensors — ~450 MB of HBM traffic per frame
-at the 1000-feature budget, the single largest slice of frame time (0.34 ms
-of a 1.08 ms frame).
-
-This version cuts that traffic ~15x (measured 0.09 ms):
+blurred image (src/ORBextractor.cc:59-175, :1490-1503). A direct batched
+formulation gathers full-width (N, 48, W) row blocks and builds
+(N, 512, 48) f32 one-hot sampling tensors — ~450 MB of device-memory traffic
+per frame at the 1000-feature budget. This version moves ~15x fewer bytes:
   1. one (48, 128) bf16 row window per keypoint, gathered with a 64-aligned
-     column start (an efficient block gather — TPU element gathers serialize,
-     block gathers are DMA);
-  2. patch (N, 48, 48) = window x column-one-hot batched matmul (MXU);
+     column start (one contiguous block per keypoint instead of element
+     gathers);
+  2. patch (N, 48, 48) = window x column-one-hot batched matmul;
   3. orientation moments = Gaussian-mask contractions of the patch
      (reference IC_Angle uses a circular mask; a Gaussian window is equally
      rotation-symmetric and makes the mask separable/precomputable);
@@ -22,9 +19,9 @@ Exactness: window values are bf16-rounded, every matmul contraction row has
 exactly one nonzero (value 1.0), so bf16 accumulation reproduces the bf16
 values bit-for-bit; the descriptor bit compares are exact.
 
-A fused Pallas kernel of steps 2-4 was tried and REJECTED: Mosaic lowers the
-per-keypoint (256, 48) one-hot dots as serialized small matmuls (~1.1 ms vs
-0.09 ms for this XLA formulation, which batches them as one big 3D dot).
+A fused Pallas kernel of steps 2-4 was tried on the accelerator this engine was first written for and
+rejected: it lowered the per-keypoint (256, 48) one-hot dots as serialized
+small matmuls, where this XLA formulation batches them as one 3D dot.
 """
 
 from __future__ import annotations
@@ -47,8 +44,8 @@ def _bits_and_angle(rows, off, pat4, kmx, kmy):
         preferred_element_type=jnp.bfloat16,
     )                                                       # (N, 48, 48)
     patch_f = patch.astype(jnp.float32)
-    m10 = jnp.einsum("nij,ij->n", patch_f, kmx)
-    m01 = jnp.einsum("nij,ij->n", patch_f, kmy)
+    m10 = jnp.einsum("nij,ij->n", patch_f, kmx, precision="highest")
+    m01 = jnp.einsum("nij,ij->n", patch_f, kmy, precision="highest")
     ang = jnp.arctan2(m01, m10)
     r = jnp.sqrt(m10 * m10 + m01 * m01)
     safe = r > 0.0
@@ -112,10 +109,10 @@ def gather_windows(padded: jnp.ndarray, px: jnp.ndarray, py: jnp.ndarray):
     row start in padded coords is py, with a 64-aligned column start.
 
     The image is first re-laid-out into overlapping 128-wide column panels
-    (stride 64) so every window is ONE contiguous (48, 128) block of a panel:
-    a 2D dynamic-slice gather straight from the image measured 0.336 ms for
-    217 keypoints (XLA lowers the strided rows element-wise), the contiguous
-    panel gather 0.028 ms.
+    (stride 64) so every window is ONE contiguous (48, 128) block of a panel,
+    where a 2D dynamic-slice gather straight from the image lowers the
+    strided rows element-wise (a choice made on the accelerator this engine
+    was first written for; not re-measured on a GPU).
 
     Returns (rows (N, 48, 128), off (N,) int32 patch column start, in [0, 80])."""
     hp, wp = padded.shape

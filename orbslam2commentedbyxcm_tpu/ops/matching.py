@@ -1,4 +1,4 @@
-"""Batched 256-bit Hamming matching on the MXU.
+"""Batched 256-bit Hamming matching as bf16 matrix products.
 
 Replaces the reference's per-pair popcount loops (ORBmatcher::DescriptorDistance,
 src/ORBmatcher.cc:1983-2004, and the nine Search* modes built on it) with one
@@ -38,7 +38,7 @@ def unpack_bits(desc: jnp.ndarray) -> jnp.ndarray:
 def hamming_matrix(desc_a: jnp.ndarray, desc_b: jnp.ndarray) -> jnp.ndarray:
     """All-pairs Hamming distances: (N, 8) x (M, 8) uint32 -> (N, M) float32.
 
-    Runs on the MXU in bfloat16 with f32 accumulation (exact: all products are
+    Runs as a bfloat16 matmul with f32 accumulation (exact: all products are
     0/1 and row sums <= 256).
     """
     a = unpack_bits(desc_a).astype(jnp.bfloat16)

@@ -11,8 +11,8 @@ fixed-shape batch:
     (:524-870) / BundleAdjustment (:41-296) and g2o's BlockSolver Schur path
     (block_solver.hpp:51-90): per-landmark 3x3 Hessian blocks are inverted in
     batch, the reduced camera system S = Hcc - W Hpp^-1 W^T is formed with two
-    einsums (MXU), and the 6K x 6K pose system is solved densely — TPUs prefer
-    one dense Cholesky over sparse scatter-gather.
+    einsums, and the 6K x 6K pose system is solved densely (one dense solve
+    instead of sparse scatter-gather).
 
 Conventions: pose = Tcw (4, 4) world->camera; tangent update is LEFT
 multiplicative, Tcw <- exp(xi) Tcw with xi = [rho, phi]. Observations are
@@ -43,7 +43,9 @@ def _project_residual_jacobian(t_cw, pts_w, obs, fx, fy, cx, cy, bf):
     Jacobian convention: r(xi) = obs - proj(exp(xi) Tcw pw); J = dr/dxi.
     """
     r_cw = t_cw[..., :3, :3]
-    pc = jnp.einsum("...ij,...j->...i", r_cw, pts_w) + t_cw[..., :3, 3]
+    # every product here at "highest": a float32 matmul may otherwise run in
+    # TF32 on a GPU, a ~0.2 px reprojection error at typical depths
+    pc = jnp.einsum("...ij,...j->...i", r_cw, pts_w, precision="highest") + t_cw[..., :3, 3]
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     z_safe = jnp.where(z < 1e-6, 1e-6, z)
     inv_z = 1.0 / z_safe
@@ -77,17 +79,16 @@ def _project_residual_jacobian(t_cw, pts_w, obs, fx, fy, cx, cy, bf):
     # dpc/dxi = [I | -hat(pc)] for left-multiplicative xi = [rho, phi]
     eye = jnp.broadcast_to(jnp.eye(3, dtype=pc.dtype), pc.shape[:-1] + (3, 3))
     dpc_dxi = jnp.concatenate([eye, -hat(pc)], axis=-1)  # (N, 3, 6)
-    j_pose = -dproj @ dpc_dxi
-    j_point = -dproj @ r_cw  # dpc/dpw = R
+    j_pose = -jnp.matmul(dproj, dpc_dxi, precision="highest")
+    j_point = -jnp.matmul(dproj, r_cw, precision="highest")  # dpc/dpw = R
     return r, j_pose, j_point, pc, stereo
 
 
 def inv3x3(m: jnp.ndarray) -> jnp.ndarray:
     """Batched closed-form 3x3 inverse (adjugate / determinant).
 
-    jnp.linalg.inv on a (512, 3, 3) batch measured 0.435 ms on TPU (LU
-    lowering); the cofactor formula is pure elementwise math (~microseconds)
-    and these landmark blocks are damped SPD, so it is numerically safe."""
+    Pure elementwise math instead of jnp.linalg.inv's batched LU; these
+    landmark blocks are damped SPD, so it is numerically safe."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
@@ -157,17 +158,22 @@ def pose_optimization(
     (Powell trust region) — the other two g2o solver algorithms
     (Thirdparty/g2o/g2o/core/optimization_algorithm_{gauss_newton,dogleg}).
 
-    impl: None (auto: the fused single-kernel Pallas path on TPU for 'lm',
-    the XLA while-loop path otherwise), 'xla', 'pallas', or
-    'pallas_interpret' (Pallas semantics on CPU, for tests).
+    impl: None (auto: the single-kernel Pallas path on a GPU for 'lm', the
+    XLA while-loop path otherwise), 'xla', 'pallas' (GPU only), or
+    'pallas_interpret' (the same kernel interpreted on any backend, for
+    tests).
     """
+    on_gpu = jax.default_backend() == "gpu"
     if impl is None:
-        impl = (
-            "pallas"
-            if algorithm == "lm" and jax.default_backend() == "tpu"
-            else "xla"
+        impl = "pallas" if algorithm == "lm" and on_gpu else "xla"
+    if impl == "pallas" and not on_gpu:
+        raise ValueError(
+            f"impl='pallas' needs a GPU backend, not {jax.default_backend()!r}; "
+            "use impl='pallas_interpret' or 'xla'"
         )
     if impl in ("pallas", "pallas_interpret"):
+        if algorithm != "lm":
+            raise ValueError(f"the Pallas kernel implements 'lm', not {algorithm!r}")
         from orbslam2commentedbyxcm_tpu.ops.pallas_poseopt import (
             pose_optimization_fused,
         )
@@ -212,7 +218,7 @@ def _pose_optimization_xla(
         """One projection pass -> (robust cost, H, g). LM carries the best
         point's (H, g) so each iteration costs a single evaluation (the
         naive accept/reject loop projects twice per iteration, and this
-        whole solver is op-count-bound on TPU, not FLOP-bound)."""
+        whole solver is bound by its operation count, not by FLOPs)."""
         r, j_pose, _, pc, stereo = _project_residual_jacobian(
             t, pts_w, obs, fx, fy, cx, cy, bf
         )
@@ -236,11 +242,10 @@ def _pose_optimization_xla(
         use_huber = rnd < 2
         active = inliers.astype(jnp.float32)
 
-        # Early-terminating LM: each iteration costs ~27 us of op overhead on
-        # TPU (40 fixed iterations dominated the whole tracking step), and a
-        # converged round changes nothing — exit once |dx| is below float32
-        # significance or lambda has saturated. Identical results, ~2-4x
-        # fewer iterations on well-initialized frames.
+        # Early-terminating LM: every iteration is a chain of small
+        # operations, and a converged round changes nothing — exit once |dx|
+        # is below float32 significance or lambda has saturated. Identical
+        # results, fewer iterations on well-initialized frames.
         def lm_cond(carry):
             _, _, _, _, _, it, done = carry
             return (it < n_iters) & jnp.logical_not(done)
@@ -391,15 +396,17 @@ def bundle_adjustment(
         jw_pose = j_pose * w[..., None, None]
         jw_point = j_point * w[..., None, None]
 
-        # block accumulations as one-hot matmuls: TPU serializes the scatter
-        # lowering of segment_sum / .at[].add (measured 0.52 ms per LM
-        # iteration at E=4096); the same sums as MXU contractions against
-        # {0,1} index matrices take a fraction of that. Gradients (g_c, g_p)
-        # stay at precision="highest" — they set the step direction and the
-        # convergence test. The Hessian blocks use the default single-pass
-        # bf16 MXU mode: one-hot entries are exact in bf16 and the ~0.4%
-        # rounding of block values only perturbs the LM *model*; every step
-        # is still accepted/rejected against the exact f32 cost.
+        # block accumulations as one-hot matmuls against {0,1} index
+        # matrices instead of segment_sum / .at[].add scatters (a design
+        # choice made for the accelerator this engine was first written
+        # for, whose scatter lowering serialized). The
+        # Hessian blocks and gradients are accumulated at "highest": a
+        # float32 product may otherwise run in TF32 on a GPU. The cross
+        # blocks W are the one large contraction, (18, K, E) x (P, E), and
+        # stay at "default" (TF32 on a GPU, with exact one-hot operands): the
+        # rounding of block values only perturbs the LM *model*, every step
+        # is accepted or rejected against the exact float32 cost, and the
+        # exact gradient fixes the optimum.
         oh_k = (obs_pose[None, :] == jnp.arange(k_poses)[:, None]).astype(
             poses_.dtype
         )  # (K, E)
@@ -410,18 +417,23 @@ def bundle_adjustment(
         e_hpp = jnp.einsum("eij,eik->ejk", jw_point, j_point, precision="highest")
         e_gc = jnp.einsum("eij,ei->ej", jw_pose, r, precision="highest")
         e_gp = jnp.einsum("eij,ei->ej", jw_point, r, precision="highest")
-        hcc = (oh_k @ e_hcc.reshape(-1, 36)).reshape(k_poses, 6, 6)
-        hpp = (oh_p @ e_hpp.reshape(-1, 9)).reshape(p_pts, 3, 3)
+        hcc = jnp.einsum(
+            "ke,ex->kx", oh_k, e_hcc.reshape(-1, 36), precision="highest"
+        ).reshape(k_poses, 6, 6)
+        hpp = jnp.einsum(
+            "pe,ex->px", oh_p, e_hpp.reshape(-1, 9), precision="highest"
+        ).reshape(p_pts, 3, 3)
         g_c = jnp.einsum("ke,ex->kx", oh_k, e_gc, precision="highest")
         g_p = jnp.einsum("pe,ex->px", oh_p, e_gp, precision="highest")
 
         # cross blocks W (K, P, 6, 3): per 6x3-block component c, one
         # (K,E)x(E,P) matmul, batched over the 18 components (c is a batch
-        # dim of one batched MXU matmul — a lax.scan here serializes 18
-        # launches). Never materializes a (K,E,6,3) intermediate (ADVICE r1).
+        # dim of one batched matmul — a lax.scan here serializes 18
+        # launches). Never materializes a (K,E,6,3) intermediate.
         w_blk = jnp.einsum("eij,eik->ejk", jw_pose, j_point, precision="highest")
         w_parts = jnp.einsum(
-            "cke,pe->ckp", oh_k[None] * w_blk.reshape(-1, 18).T[:, None, :], oh_p
+            "cke,pe->ckp", oh_k[None] * w_blk.reshape(-1, 18).T[:, None, :], oh_p,
+            precision="default",
         )
         w_cp = w_parts.reshape(6, 3, k_poses, p_pts).transpose(2, 3, 0, 1)
 
@@ -430,7 +442,7 @@ def bundle_adjustment(
         hpp_inv = inv3x3(hpp_d)
         hpp_inv = jnp.where(point_valid[:, None, None], hpp_inv, 0.0)
 
-        # Schur complement on the MXU
+        # Schur complement
         y = jnp.einsum("kpab,pbc->kpac", w_cp, hpp_inv, precision="highest")
         s2 = jnp.einsum("kpab,lpcb->kalc", y, w_cp, precision="highest")  # (K,6,K,6)
         hcc_lm = hcc + lam * jax.vmap(jnp.diag)(jax.vmap(jnp.diag)(hcc))

@@ -1,4 +1,4 @@
-"""TPU-native ORB feature extraction.
+"""Batched ORB feature extraction.
 
 Re-design of the reference ORB pipeline (src/ORBextractor.cc) as a fully
 batched, static-shape XLA program:
@@ -16,7 +16,7 @@ batched, static-shape XLA program:
                                                 per-keypoint patches
                                                 (ops/descriptors)
   7x7 sigma=2 Gaussian blur (:1497)             separable depthwise conv
-  computeOrbDescriptor (:118)                   rotated-pattern one-hot MXU
+  computeOrbDescriptor (:118)                   rotated-pattern one-hot matmul
                                                 sampling (ops/descriptors)
 
 Descriptors are 256-bit, stored packed as uint32[N, 8]. The sampling pattern is
@@ -90,9 +90,9 @@ class FrameFeatures(NamedTuple):
 def _separable_blur(img: jnp.ndarray, kernel: np.ndarray) -> jnp.ndarray:
     """Depthwise separable blur of a (H, W) image, replicate-padded.
 
-    Implemented as explicit shift-multiply-adds: XLA's generic conv lowering is
-    ~100x slower than this on TPU for single-channel images (measured), while
-    shifted adds fuse into a couple of VPU loops.
+    Implemented as explicit shift-multiply-adds, which XLA fuses into a
+    couple of loops (chosen over a generic single-channel convolution on
+    the accelerator this engine was first written for).
     """
     r = len(kernel) // 2
     h, w = img.shape
@@ -118,9 +118,9 @@ def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) linear-resize weight matrix, identical (to f32 rounding)
     to jax.image.resize(method="linear", antialias=True): triangle kernel with
     width scaled by the downscale factor, column-normalized. Precomputed in
-    numpy so pyramid resizes become two MXU matmuls per level — measured
-    0.026 ms for all 7 levels vs 0.096 ms for jax.image.resize (whose weight
-    matrices are rebuilt on device every call)."""
+    numpy so pyramid resizes become two matmuls per level instead of
+    jax.image.resize, whose weight matrices are rebuilt on device every
+    call."""
     scale = n_out / n_in
     sample_f = (np.arange(n_out) + 0.5) / scale - 0.5
     x = np.abs(sample_f[None, :] - np.arange(n_in)[:, None]) * min(scale, 1.0)
@@ -167,7 +167,7 @@ def _fast_maps(img: jnp.ndarray, th_hi: float, th_lo: float):
     Returns (score_hi, score_lo, corner_hi) of shape (H, W); the score is the
     max-sustaining-threshold response V (see fast_response), zero where the
     pixel is not a corner at that threshold — the same score OpenCV's FAST
-    uses for ranking, and bit-identical to the fused Pallas kernel.
+    uses for ranking.
     """
     h, w = img.shape
     hi, wi = h - 6, w - 6
@@ -199,8 +199,8 @@ def _gauss_moment_taps(radius: int = PATCH_RADIUS, sigma: float = 7.0):
 
     m10 = (x g(x) g(y)) * I is exactly separable: rows with x*g(x), cols with
     g(y). A Gaussian window is rotationally symmetric like the reference's
-    circular mask (IC_Angle), but separability makes the dense moment maps
-    ~100x cheaper than per-keypoint patch gathers on TPU.
+    circular mask (IC_Angle), and separability lets the moments be taken as
+    mask contractions of each keypoint's patch.
     """
     xs = np.arange(-radius, radius + 1, dtype=np.float64)
     g = np.exp(-0.5 * (xs / sigma) ** 2)
@@ -225,7 +225,6 @@ class ORBExtractor:
         min_th_fast: float = 7.0,
         cell_size: int = 32,
         per_cell_k: int = 4,
-        use_pallas: bool | None = None,
         normalize_exposure: bool = False,
         exposure_target_mad: float = 18.0,
     ):
@@ -236,12 +235,6 @@ class ORBExtractor:
         self.min_th = float(min_th_fast)
         self.cell_size = cell_size
         self.per_cell_k = per_cell_k
-        # Fused Pallas frontend on TPU; pure-XLA fallback elsewhere.
-        if use_pallas is None:
-            import jax as _jax
-
-            use_pallas = _jax.default_backend() == "tpu"
-        self.use_pallas = use_pallas
         # Exposure-gain normalization: FAST's absolute thresholds (20/7,
         # reference src/ORBextractor.cc:1017) assume a nominal 8-bit scene
         # contrast; under camera gain drift the corner response V scales with
@@ -289,7 +282,7 @@ class ORBExtractor:
     def _config_key(self):
         return (
             self.n_features, self.scale_factor, self.n_levels, self.ini_th,
-            self.min_th, self.cell_size, self.per_cell_k, self.use_pallas,
+            self.min_th, self.cell_size, self.per_cell_k,
             self.normalize_exposure, self.exposure_target_mad,
         )
 
@@ -336,7 +329,13 @@ class ORBExtractor:
             if lvl > 0:
                 wh = jnp.asarray(_resize_weights(h, hl))
                 ww = jnp.asarray(_resize_weights(w, wl))
-                level_img = wh @ img @ ww.T
+                # "highest": a TF32 product would move pixel values by up to
+                # ~0.25 grey levels and flip FAST decisions at the 20/7
+                # thresholds
+                level_img = jnp.matmul(
+                    jnp.matmul(wh, img, precision="highest"), ww.T,
+                    precision="highest",
+                )
             outs.append(self._extract_level(level_img, lvl, hl, wl))
         uv = jnp.concatenate([o[0] for o in outs])
         resp = jnp.concatenate([o[1] for o in outs])
@@ -358,14 +357,12 @@ class ORBExtractor:
                 z((0, PATCH_RADIUS * 2 + 18, 128), jnp.bfloat16),
                 z((0,), jnp.int32), z((0,), bool),
             )
-        if self.use_pallas:
-            from orbslam2commentedbyxcm_tpu.ops.pallas_frontend import fused_frontend
-
-            blurred, nms_hi, nms_lo = fused_frontend(img, self.ini_th, self.min_th)
-        else:
-            blurred = _separable_blur(img, self._blur)
-            s_hi, s_lo, _ = _fast_maps(img, self.ini_th, self.min_th)
-            nms_hi, nms_lo = _nms3(s_hi), _nms3(s_lo)
+        # Plain jnp/lax: XLA fuses the blur, FAST and NMS passes (a
+        # hand-written Triton kernel of this stage measured slower on an
+        # H100: PERF.md, Findings)
+        blurred = _separable_blur(img, self._blur)
+        s_hi, s_lo, _ = _fast_maps(img, self.ini_th, self.min_th)
+        nms_hi, nms_lo = _nms3(s_hi), _nms3(s_lo)
 
         # Border exclusion: descriptors/orientation need EDGE margin.
         ys = jax.lax.broadcasted_iota(jnp.int32, (hl, wl), 0)
@@ -388,8 +385,9 @@ class ORBExtractor:
         # Per-cell top-k runs as max/min reductions over the free (cy, cs,
         # cx, cs) VIEW of the score map — the earlier (cy, cx, cs*cs) cell
         # relayout (transpose copies of every full-res map, 2 maps x 8
-        # levels) was the selection stage's main cost. lax.top_k's sort
-        # lowering measured 3x slower than k max+mask passes for k=4.
+        # levels) was the selection stage's main cost. k max+mask passes
+        # stand in for lax.top_k's sort (chosen on the accelerator this
+        # engine was first written for; not re-measured on a GPU).
         k = self.per_cell_k
         in_cell = (
             jax.lax.broadcasted_iota(jnp.int32, (cy, cs, cx, cs), 1) * cs
@@ -442,7 +440,7 @@ class ORBExtractor:
 
         # Orientation + descriptors: gather one narrow (48, 128) bf16 window
         # per keypoint; ops/descriptors computes moments + rotated-pattern
-        # bits from it with batched one-hot MXU contractions.
+        # bits from it with batched one-hot contractions.
         from orbslam2commentedbyxcm_tpu.ops.descriptors import gather_windows
 
         padded = jnp.pad(blurred, EDGE_PAD, mode="reflect").astype(jnp.bfloat16)

@@ -1,29 +1,25 @@
-"""Fused Pallas kernel for motion-only bundle adjustment.
+"""Motion-only bundle adjustment as one Pallas kernel for NVIDIA GPUs.
 
 The XLA version of `optim.pose_optimization` (reference
-Optimizer::PoseOptimization, src/Optimizer.cc:299-502) is dispatch-bound on
-TPU: each of its ~40 Levenberg-Marquardt iterations is a chain of ~20 tiny
-kernels inside a `lax.while_loop`, costing ~27 us of launch latency per
-iteration (~0.5 ms per frame) for a problem whose arithmetic is microscopic
-(1000 reprojection edges, one 6-DoF pose).
+Optimizer::PoseOptimization, src/Optimizer.cc:299-502) is a
+`lax.while_loop` of about 20 small operations per Levenberg-Marquardt
+iteration, for up to 4 x 10 iterations, twice per tracked frame. Its
+arithmetic is microscopic (about 1000 reprojection edges, one 6-DoF pose),
+so on the GPU its cost is kernel launches and the loop predicate's trip to
+the host, not FLOPs.
 
-This kernel runs the ENTIRE optimization — 4 relabeling rounds x up-to-10
-damped-LM iterations, Huber weighting, chi2 outlier gating, early
-termination — in ONE kernel launch. All state (pose, 6x6 Hessian, gradient,
-edge buffers) lives in VMEM/registers; the only HBM traffic is the initial
-edge load and the final (pose, inlier-mask) store.
+This kernel (Pallas on the Triton route) runs the whole optimization in ONE
+launch: 4 relabeling rounds x up-to-10 damped LM iterations, Huber
+weighting, chi2 outlier gating and early termination. One program holds
+every edge row in registers across its warps. Per evaluation the 6x6
+Gauss-Newton system is 21 block reductions for the upper triangle of H,
+6 for g and one for the robust cost; the pose is carried as 12 scalars and
+the damped solve is an unrolled scalar Cholesky (the damped H is SPD). The
+only device-memory traffic is the edge load and the (pose, inliers) store.
 
-Layout: edge arrays come in transposed, (3, N) with N a multiple of 128, so
-each row is a full-lane VPU vector. The Gauss system is built on the MXU via
-one (8, 3N) x (3N, 8) matmul per evaluation: rows 0-5 hold the weighted
-pose Jacobian, row 6 holds the residual, so a single product yields H
-(6x6 block), g (column 6) and the weighted SSE ([6, 6]) at once. The 6x6
-damped solve is an unrolled in-kernel Gauss-Jordan elimination on an (8, 16)
-augmented tile; SE3 exp/compose is scalar math.
-
-Numerics match ops/optim.pose_optimization (same f32 ops in a different
-order); tests assert identical inlier sets and poses to ~1e-5 on synthetic
-problems.
+The edge count is padded to a power of two (Triton's block rule): 1024 at
+1000 features, 2048 at 2000. Numerics follow ops/optim.pose_optimization
+(the same float32 formulas in another order); tests compare the two.
 """
 
 from __future__ import annotations
@@ -33,17 +29,17 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
 
+_N_PARAMS = 32  # fx, fy, cx, cy, bf, then the 3x4 top of Tcw row-major
+
 
 def _se3_exp_mul(dx, t):
-    """T_new = exp([rho, phi]) @ T for dx (8, 1) (rows 0-5 used), t (4, 4)."""
-    d = dx[:, 0]
-    rho0, rho1, rho2 = d[0], d[1], d[2]
-    p0, p1, p2 = d[3], d[4], d[5]
+    """exp([rho, phi]) @ T for dx a 6-tuple and T the 12-tuple 3x4 top of Tcw."""
+    rho0, rho1, rho2, p0, p1, p2 = dx
     th2 = p0 * p0 + p1 * p1 + p2 * p2
     th = jnp.sqrt(jnp.maximum(th2, 1e-16))
     small = th2 < 1e-8
@@ -60,217 +56,179 @@ def _se3_exp_mul(dx, t):
     k2_12 = p1 * p2
 
     # R_delta = I + a K + b K2
-    r00 = 1.0 + b * k2_00
-    r01 = -a * p2 + b * k2_01
-    r02 = a * p1 + b * k2_02
-    r10 = a * p2 + b * k2_01
-    r11 = 1.0 + b * k2_11
-    r12 = -a * p0 + b * k2_12
-    r20 = -a * p1 + b * k2_02
-    r21 = a * p0 + b * k2_12
-    r22 = 1.0 + b * k2_22
-
+    rd = (
+        (1.0 + b * k2_00, -a * p2 + b * k2_01, a * p1 + b * k2_02),
+        (a * p2 + b * k2_01, 1.0 + b * k2_11, -a * p0 + b * k2_12),
+        (-a * p1 + b * k2_02, a * p0 + b * k2_12, 1.0 + b * k2_22),
+    )
     # V = I + b K + c K2;  t_delta = V @ rho
-    v00 = 1.0 + c * k2_00
-    v01 = -b * p2 + c * k2_01
-    v02 = b * p1 + c * k2_02
-    v10 = b * p2 + c * k2_01
-    v11 = 1.0 + c * k2_11
-    v12 = -b * p0 + c * k2_12
-    v20 = -b * p1 + c * k2_02
-    v21 = b * p0 + c * k2_12
-    v22 = 1.0 + c * k2_22
-    td0 = v00 * rho0 + v01 * rho1 + v02 * rho2
-    td1 = v10 * rho0 + v11 * rho1 + v12 * rho2
-    td2 = v20 * rho0 + v21 * rho1 + v22 * rho2
+    vm = (
+        (1.0 + c * k2_00, -b * p2 + c * k2_01, b * p1 + c * k2_02),
+        (b * p2 + c * k2_01, 1.0 + c * k2_11, -b * p0 + c * k2_12),
+        (-b * p1 + c * k2_02, b * p0 + c * k2_12, 1.0 + c * k2_22),
+    )
+    td = [vm[i][0] * rho0 + vm[i][1] * rho1 + vm[i][2] * rho2 for i in range(3)]
 
-    # T_new = [Rd | td] @ T
-    o00, o01, o02, o03 = t[0, 0], t[0, 1], t[0, 2], t[0, 3]
-    o10, o11, o12, o13 = t[1, 0], t[1, 1], t[1, 2], t[1, 3]
-    o20, o21, o22, o23 = t[2, 0], t[2, 1], t[2, 2], t[2, 3]
-
-    def rowmul(a0, a1, a2, td):
-        return (
-            a0 * o00 + a1 * o10 + a2 * o20,
-            a0 * o01 + a1 * o11 + a2 * o21,
-            a0 * o02 + a1 * o12 + a2 * o22,
-            a0 * o03 + a1 * o13 + a2 * o23 + td,
-        )
-
-    n0 = rowmul(r00, r01, r02, td0)
-    n1 = rowmul(r10, r11, r12, td1)
-    n2 = rowmul(r20, r21, r22, td2)
-    bottom = (jnp.float32(0.0), jnp.float32(0.0), jnp.float32(0.0), jnp.float32(1.0))
-    rows = [jnp.stack(r) for r in (n0, n1, n2, bottom)]
-    return jnp.stack(rows, axis=0)
+    out = []
+    for i in range(3):
+        for j in range(4):
+            s = rd[i][0] * t[j] + rd[i][1] * t[4 + j] + rd[i][2] * t[8 + j]
+            out.append(s + td[i] if j == 3 else s)
+    return tuple(out)
 
 
-def _gj_solve(h8, g8, lam, eps):
-    """dx = -(H + lam diag(H) + eps I)^-1 g via unrolled Gauss-Jordan.
+def _tri(i, j):
+    """Index of H[i, j] (i <= j) in the packed upper triangle of a 6x6."""
+    i, j = min(i, j), max(i, j)
+    return i * 6 - i * (i - 1) // 2 + (j - i)
 
-    h8: (8, 8) with the 6x6 system in the top-left; g8: (8, 1). Rows/cols 6-7
-    are forced to identity so the padded system stays invertible.
+
+def _damped_solve(h, g, lam):
+    """dx = -(H + lam diag(H) + 1e-8 I)^-1 g by an unrolled 6x6 Cholesky.
+
+    h: the 21 packed upper-triangle scalars of H; g: 6 scalars.
     """
-    iota_r = jax.lax.broadcasted_iota(jnp.int32, (8, 8), 0)
-    iota_c = jax.lax.broadcasted_iota(jnp.int32, (8, 8), 1)
-    diag = (iota_r == iota_c).astype(jnp.float32)
-    pad = ((iota_r >= 6) | (iota_c >= 6)).astype(jnp.float32)
-    hd = h8 + lam * (diag * h8) + eps * diag
-    hd = hd * (1.0 - pad) + diag * pad  # identity padding rows/cols
+    a = [[None] * 6 for _ in range(6)]
+    for i in range(6):
+        for j in range(6):
+            v = h[_tri(i, j)]
+            a[i][j] = v * (1.0 + lam) + 1e-8 if i == j else v
+    low = [[None] * 6 for _ in range(6)]
+    for j in range(6):
+        s = a[j][j]
+        for k in range(j):
+            s = s - low[j][k] * low[j][k]
+        d = jnp.sqrt(jnp.maximum(s, 1e-30))
+        low[j][j] = d
+        for i in range(j + 1, 6):
+            s = a[i][j]
+            for k in range(j):
+                s = s - low[i][k] * low[j][k]
+            low[i][j] = s / d
+    y = []
+    for i in range(6):
+        s = -g[i]
+        for k in range(i):
+            s = s - low[i][k] * y[k]
+        y.append(s / low[i][i])
+    x = [None] * 6
+    for i in reversed(range(6)):
+        s = y[i]
+        for k in range(i + 1, 6):
+            s = s - low[k][i] * x[k]
+        x[i] = s / low[i][i]
+    return tuple(x)
 
-    aug = jnp.concatenate([hd, jnp.eye(8, dtype=jnp.float32)], axis=1)  # (8, 16)
-    row_iota = jax.lax.broadcasted_iota(jnp.int32, (8, 16), 0)
-    for k in range(6):
-        piv = aug[k, k]
-        rowk = aug[k : k + 1, :] / piv                     # (1, 16)
-        colk = aug[:, k : k + 1]                           # (8, 1)
-        aug = jnp.where(row_iota == k, rowk, aug - colk * rowk)
-    hinv = aug[:, 8:16]
-    dx = -jnp.sum(hinv * jnp.transpose(g8), axis=1, keepdims=True)  # (8, 1)
-    zero_pad = (jax.lax.broadcasted_iota(jnp.int32, (8, 1), 0) < 6).astype(jnp.float32)
-    return dx * zero_pad
 
+def _pose_opt_kernel(prm_ref, edge_ref, out_ref, inl_ref, *, n_rounds: int, n_iters: int):
+    fx, fy, cx, cy, bf = (prm_ref[i] for i in range(5))
+    t_cw = tuple(prm_ref[5 + i] for i in range(12))
+    x_w, y_w, z_w, ou, ov, our, mask, isig = (edge_ref[i] for i in range(8))
 
-def _pose_opt_kernel(
-    scal_ref, ptsT_ref, obsT_ref, mask_ref, isig_ref,
-    t_in_ref,
-    t_out_ref, inl_out_ref, stats_ref,
-    *, n_rounds: int, n_iters: int,
-):
-    fx = scal_ref[0]
-    fy = scal_ref[1]
-    cx = scal_ref[2]
-    cy = scal_ref[3]
-    bf = scal_ref[4]
-
-    x_w = ptsT_ref[0:1, :]   # (1, N)
-    y_w = ptsT_ref[1:2, :]
-    z_w = ptsT_ref[2:3, :]
-    ou = obsT_ref[0:1, :]
-    ov = obsT_ref[1:2, :]
-    our = obsT_ref[2:3, :]
-    mask = mask_ref[0:1, :]
-    isig = isig_ref[0:1, :]
-
-    stereo = (our >= 0).astype(jnp.float32)
-    delta2 = stereo * CHI2_STEREO + (1.0 - stereo) * CHI2_MONO
+    stereo = jnp.where(our >= 0, 1.0, 0.0)
+    delta2 = jnp.where(our >= 0, CHI2_STEREO, CHI2_MONO)
     sqrt_d2 = jnp.sqrt(delta2)
 
-    def eval_point(t, active, use_huber):
-        """-> (err, m8 = [Jw | wr] @ [J | r]^T on the MXU, c2)."""
-        r0 = t[0, 0]; r1 = t[0, 1]; r2 = t[0, 2]; t0 = t[0, 3]
-        r3 = t[1, 0]; r4 = t[1, 1]; r5 = t[1, 2]; t1 = t[1, 3]
-        r6 = t[2, 0]; r7 = t[2, 1]; r8 = t[2, 2]; t2 = t[2, 3]
-        px = r0 * x_w + r1 * y_w + r2 * z_w + t0
-        py = r3 * x_w + r4 * y_w + r5 * z_w + t1
-        pz = r6 * x_w + r7 * y_w + r8 * z_w + t2
-
-        front = (pz > 0).astype(jnp.float32)
+    def project(t):
+        px = t[0] * x_w + t[1] * y_w + t[2] * z_w + t[3]
+        py = t[4] * x_w + t[5] * y_w + t[6] * z_w + t[7]
+        pz = t[8] * x_w + t[9] * y_w + t[10] * z_w + t[11]
         invz = 1.0 / jnp.where(pz < 1e-6, 1e-6, pz)
         xz = px * invz
         yz = py * invz
-
         u = fx * xz + cx
-        v = fy * yz + cy
-        ur = u - bf * invz
         ru = ou - u
-        rv = ov - v
-        rr = (our - ur) * stereo
-
+        rv = ov - (fy * yz + cy)
+        rr = (our - (u - bf * invz)) * stereo
         c2 = (ru * ru + rv * rv + rr * rr) * isig
-        w = isig * active * front
+        return px, pz, invz, xz, yz, ru, rv, rr, c2
+
+    def evaluate(t, active, use_huber):
+        """-> (robust cost, 21 packed H scalars, 6 g scalars)."""
+        px, pz, invz, xz, yz, ru, rv, rr, c2 = project(t)
+        front = pz > 0
+        w = jnp.where(front, isig * active, 0.0)
         if use_huber:
             e = jnp.sqrt(jnp.maximum(c2, 1e-12))
-            w = w * jnp.where(c2 <= delta2, 1.0, sqrt_d2 / e)
-            rho = jnp.where(c2 <= delta2, c2, 2.0 * sqrt_d2 * e - delta2)
+            inside = c2 <= delta2
+            w = w * jnp.where(inside, 1.0, sqrt_d2 / e)
+            rho = jnp.where(inside, c2, 2.0 * sqrt_d2 * e - delta2)
         else:
             rho = c2
-        err = jnp.sum(jnp.where(front > 0, rho, 1e6) * active)
+        err = jnp.sum(jnp.where(front, rho, 1e6) * active)
 
         # Jacobian rows (same closed form as optim._project_residual_jacobian)
-        zero = jnp.zeros_like(u)
-        ju = [-fx * invz, zero, fx * xz * invz, fx * xz * yz, -fx * (1.0 + xz * xz), fx * yz]
-        jv = [zero, -fy * invz, fy * yz * invz, fy * (1.0 + yz * yz), -fy * xz * yz, -fy * xz]
-        ee = (bf - fx * px * invz) * invz  # (bf - fx x / z) / z
-        jr = [(-fx * invz) * stereo, zero, (-ee * invz) * stereo,
-              (-ee * yz) * stereo, (-(fx - ee * xz)) * stereo, (fx * yz) * stereo]
-
-        rows_j, rows_jw = [], []
-        for a in range(6):
-            rows_j.append(jnp.concatenate([ju[a], jv[a], jr[a]], axis=1))
-        rows_j.append(jnp.concatenate([ru, rv, rr], axis=1))
-        rows_j.append(jnp.zeros_like(rows_j[0]))
-        jmat = jnp.concatenate(rows_j, axis=0)          # (8, 3N)
-        w3 = jnp.concatenate([w, w, w], axis=1)          # (1, 3N)
-        jwmat = jmat * w3
-        m8 = jax.lax.dot_general(
-            jwmat, jmat, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # (8, 8): [0:6,0:6]=H, [0:6,6]=g(+), [6,6]=wSSE
-        return err, m8, c2
+        zero = jnp.zeros_like(xz)
+        ee = (bf - fx * px * invz) * invz
+        ju = (-fx * invz, zero, fx * xz * invz, fx * xz * yz, -fx * (1.0 + xz * xz), fx * yz)
+        jv = (zero, -fy * invz, fy * yz * invz, fy * (1.0 + yz * yz), -fy * xz * yz, -fy * xz)
+        jr = (-fx * invz * stereo, zero, -ee * invz * stereo,
+              -ee * yz * stereo, -(fx - ee * xz) * stereo, fx * yz * stereo)
+        wu = [w * ju[a] for a in range(6)]
+        wv = [w * jv[a] for a in range(6)]
+        wr = [w * jr[a] for a in range(6)]
+        # ju[1], jv[0] and jr[1] are identically zero: skip their products
+        h = []
+        for i in range(6):
+            for j in range(i, 6):
+                terms = []
+                if 1 not in (i, j):
+                    terms += [wu[i] * ju[j], wr[i] * jr[j]]
+                if 0 not in (i, j):
+                    terms.append(wv[i] * jv[j])
+                h.append(jnp.sum(functools.reduce(jnp.add, terms)) if terms else jnp.float32(0.0))
+        g = tuple(jnp.sum(wu[a] * ru + wv[a] * rv + wr[a] * rr) for a in range(6))
+        return err, tuple(h), g
 
     def chi2_only(t):
-        r0 = t[0, 0]; r1 = t[0, 1]; r2 = t[0, 2]; t0 = t[0, 3]
-        r3 = t[1, 0]; r4 = t[1, 1]; r5 = t[1, 2]; t1 = t[1, 3]
-        r6 = t[2, 0]; r7 = t[2, 1]; r8 = t[2, 2]; t2 = t[2, 3]
-        px = r0 * x_w + r1 * y_w + r2 * z_w + t0
-        py = r3 * x_w + r4 * y_w + r5 * z_w + t1
-        pz = r6 * x_w + r7 * y_w + r8 * z_w + t2
-        invz = 1.0 / jnp.where(pz < 1e-6, 1e-6, pz)
-        u = fx * px * invz + cx
-        v = fy * py * invz + cy
-        ur = u - bf * invz
-        ru = ou - u
-        rv = ov - v
-        rr = (our - ur) * stereo
-        c2 = (ru * ru + rv * rv + rr * rr) * isig
+        _, pz, _, _, _, _, _, _, c2 = project(t)
         return jnp.where(pz > 0, c2, 1e6)
 
-    t_cw = t_in_ref[:, :]
     inliers = mask
-
     for rnd in range(n_rounds):
         use_huber = rnd < 2
         active = inliers
-
-        err0, m8_0, _ = eval_point(t_cw, active, use_huber)
+        err0, h0, g0 = evaluate(t_cw, active, use_huber)
 
         def cond(carry):
-            _, _, _, _, it, done = carry
+            it, done = carry[-2], carry[-1]
             return (it < n_iters) & jnp.logical_not(done)
 
         def body(carry, use_huber=use_huber, active=active):
-            t_best, m8, lam, err_best, it, done = carry
-            # g lives in column 6 of m8 (rows 0-5); signs: m8[a,6]=sum w J_a r
-            g8 = m8[:, 6:7]
-            dx = _gj_solve(m8, g8, lam, 1e-8)
+            t_best, h, g = carry[0:12], carry[12:33], carry[33:39]
+            lam, err_best, it = carry[39], carry[40], carry[41]
+            dx = _damped_solve(h, g, lam)
             t_new = _se3_exp_mul(dx, t_best)
-            err_new, m8_new, _ = eval_point(t_new, active, use_huber)
+            err_new, h_new, g_new = evaluate(t_new, active, use_huber)
             accept = err_new < err_best
-            t_best = jnp.where(accept, t_new, t_best)
-            m8 = jnp.where(accept, m8_new, m8)
+            pick = lambda new, old: tuple(jnp.where(accept, a, b) for a, b in zip(new, old))  # noqa: E731
             lam = jnp.clip(jnp.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e6)
-            err_best = jnp.where(accept, err_new, err_best)
-            done = (jnp.max(jnp.abs(dx)) < 1e-6) | (lam >= 1e6)
-            return (t_best, m8, lam, err_best, it + 1, done)
+            step = functools.reduce(jnp.maximum, [jnp.abs(d) for d in dx])
+            done = (step < 1e-6) | (lam >= 1e6)
+            return (*pick(t_new, t_best), *pick(h_new, h), *pick(g_new, g),
+                    lam, jnp.where(accept, err_new, err_best), it + 1, done)
 
-        carry = (t_cw, m8_0, jnp.float32(1e-3), err0, jnp.int32(0), jnp.bool_(False))
-        t_cw, _, _, _, _, _ = jax.lax.while_loop(cond, body, carry)
-
-        c2 = chi2_only(t_cw)
-        inliers = mask * (c2 <= delta2).astype(jnp.float32)
+        carry = (*t_cw, *h0, *g0, jnp.float32(1e-3), err0, jnp.int32(0), jnp.bool_(False))
+        t_cw = jax.lax.while_loop(cond, body, carry)[0:12]
+        inliers = mask * jnp.where(chi2_only(t_cw) <= delta2, 1.0, 0.0)
 
     c2 = chi2_only(t_cw)
-    inliers = mask * (c2 <= delta2).astype(jnp.float32)
-    t_out_ref[:, :] = t_cw
-    inl_out_ref[0:1, :] = inliers
-    stats_ref[0] = jnp.sum(inliers)
-    stats_ref[1] = jnp.sum(inliers * c2)
+    inliers = mask * jnp.where(c2 <= delta2, 1.0, 0.0)
+    for i in range(12):
+        out_ref[i] = t_cw[i]
+    out_ref[12] = jnp.sum(inliers)
+    out_ref[13] = jnp.sum(inliers * c2)
+    out_ref[14] = jnp.float32(0.0)
+    out_ref[15] = jnp.float32(0.0)
+    inl_ref[...] = inliers
 
 
-@functools.partial(
-    jax.jit, static_argnames=("n_rounds", "n_iters", "interpret")
-)
+def padded_edges(n: int) -> int:
+    """Edge rows the kernel holds: the next power of two, at least 128."""
+    return max(128, pl.next_power_of_2(n))
+
+
+@functools.partial(jax.jit, static_argnames=("n_rounds", "n_iters", "interpret"))
 def pose_optimization_fused(
     t_cw, pts_w, obs, mask, inv_sigma2, fx, fy, cx, cy, bf,
     n_rounds: int = 4, n_iters: int = 10, interpret: bool = False,
@@ -280,45 +238,47 @@ def pose_optimization_fused(
     chi2 ()).
     """
     n = pts_w.shape[0]
-    n_pad = -(-n // 128) * 128
-    pad = n_pad - n
-
-    ptsT = jnp.pad(pts_w.astype(jnp.float32).T, ((0, 0), (0, pad)))
-    # padded obs get u_right = -1 (mono) so stereo rows stay inactive
-    obsT = jnp.pad(
-        obs.astype(jnp.float32).T, ((0, 0), (0, pad)), constant_values=-1.0
+    n_pad = padded_edges(n)
+    f32 = jnp.float32
+    # rows: x, y, z, u, v, u_right, mask, 1/sigma^2. Padded edges are masked
+    # out and mono (u_right = -1), so they add nothing to any sum.
+    edges = jnp.concatenate(
+        [
+            pts_w.astype(f32).T,
+            obs.astype(f32).T,
+            mask.astype(f32)[None, :],
+            inv_sigma2.astype(f32)[None, :],
+        ],
+        axis=0,
     )
-    mask_row = jnp.pad(mask.astype(jnp.float32)[None, :], ((0, 0), (0, pad)))
-    isig_row = jnp.pad(inv_sigma2.astype(jnp.float32)[None, :], ((0, 0), (0, pad)))
-    scal = jnp.stack([
-        jnp.asarray(fx, jnp.float32), jnp.asarray(fy, jnp.float32),
-        jnp.asarray(cx, jnp.float32), jnp.asarray(cy, jnp.float32),
-        jnp.asarray(bf, jnp.float32),
+    pad_col = jnp.array([0, 0, 1, 0, 0, -1, 0, 0], f32)[:, None]
+    edges = jnp.concatenate(
+        [edges, jnp.broadcast_to(pad_col, (8, n_pad - n))], axis=1
+    )
+    prm = jnp.concatenate([
+        jnp.stack([jnp.asarray(v, f32) for v in (fx, fy, cx, cy, bf)]),
+        t_cw.astype(f32)[:3, :].reshape(12),
+        jnp.zeros((_N_PARAMS - 17,), f32),
     ])
 
     kernel = functools.partial(_pose_opt_kernel, n_rounds=n_rounds, n_iters=n_iters)
-    t_out, inl_out, stats = pl.pallas_call(
+    out, inl = pl.pallas_call(
         kernel,
         out_shape=(
-            jax.ShapeDtypeStruct((4, 4), jnp.float32),
-            jax.ShapeDtypeStruct((1, n_pad), jnp.float32),
-            jax.ShapeDtypeStruct((8,), jnp.float32),
+            jax.ShapeDtypeStruct((16,), f32),
+            jax.ShapeDtypeStruct((n_pad,), f32),
         ),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
+        backend="triton",
+        # one warp per 128 edge rows (at most 16): about 4 rows of each edge
+        # field per thread, so the live set stays in registers
+        compiler_params=plgpu.CompilerParams(
+            num_warps=min(16, n_pad // 128), num_stages=1
         ),
         interpret=interpret,
-    )(scal, ptsT, obsT, mask_row, isig_row, t_cw.astype(jnp.float32))
+        name="pose_lm",
+    )(prm, edges)
 
-    inliers = inl_out[0, :n] > 0.5
-    return t_out, inliers, stats[0].astype(jnp.int32), stats[1]
+    t_out = jnp.concatenate(
+        [out[:12].reshape(3, 4), jnp.array([[0.0, 0.0, 0.0, 1.0]], f32)], axis=0
+    )
+    return t_out, inl[:n] > 0.5, out[12].astype(jnp.int32), out[13]

@@ -2,7 +2,7 @@
 
 Fills the role of the reference PnPsolver (src/PnPsolver.cc — EPnP inside an
 adaptive RANSAC loop, used by Tracking::Relocalization). Two solvers, both
-TPU-first (every RANSAC hypothesis is a vmapped lane; no sequential
+batched (every RANSAC hypothesis is a vmapped lane; no sequential
 hypothesis loop):
 
   * `ransac_epnp` — full EPnP (reference compute_pose, src/PnPsolver.cc:644):
@@ -54,7 +54,7 @@ def _inv2x2(m: jnp.ndarray) -> jnp.ndarray:
 def inv_small(m: jnp.ndarray) -> jnp.ndarray:
     """Closed-form batched inverse for n<=6 (recursive block-Schur over 2x2 /
     3x3 cofactor inverses) — replaces per-lane LU `jnp.linalg.solve`, whose
-    tiny-matrix TPU lowering is a sequential loop. Intended for damped
+    tiny-matrix lowering is a sequential loop. Intended for damped
     normal-equation matrices (symmetric positive definite)."""
     from orbslam2commentedbyxcm_tpu.ops.optim import inv3x3
     n = m.shape[-1]
@@ -89,10 +89,10 @@ def _smallest_eigvecs_block(g: jnp.ndarray, k: int = 4, iters: int = 16,
     symmetric PSD g (..., d, d), columns ordered smallest-first.
 
     Cholesky-backed block inverse iteration with modified Gram-Schmidt —
-    the TPU-first replacement for the per-hypothesis 12x12 SVD the reference
+    the batched replacement for the per-hypothesis 12x12 SVD the reference
     takes of M^T M (src/PnPsolver.cc:698-704): XLA lowers small-matrix
-    SVD/eigh to one-sided Jacobi on TPU, which dominated the EPnP RANSAC
-    bank; triangular solves are pure batched arithmetic. Subspace ordering
+    SVD/eigh to iterative Jacobi sweeps; triangular solves are pure batched
+    arithmetic. Subspace ordering
     under MGS converges each column to the corresponding eigenvector
     (smallest first), which is what the beta cases assume of v1..v4."""
     d = g.shape[-1]
@@ -103,8 +103,8 @@ def _smallest_eigvecs_block(g: jnp.ndarray, k: int = 4, iters: int = 16,
     bad = ~jnp.all(jnp.isfinite(chol), axis=(-2, -1))
     chol = jnp.where(bad[..., None, None], jnp.eye(d, dtype=g.dtype), chol)
     # explicit inverse via ONE triangular solve with d RHS, then the iteration
-    # is pure batched matmul (the per-iteration triangular-solve chain is a
-    # sequential lowering on TPU; matmuls ride the MXU)
+    # is pure batched matmul (a per-iteration triangular-solve chain lowers
+    # sequentially)
     linv = jax.scipy.linalg.solve_triangular(
         chol, jnp.broadcast_to(jnp.eye(d, dtype=g.dtype), a.shape), lower=True
     )
@@ -333,7 +333,7 @@ def _epnp_pose(pts3d: jnp.ndarray, uvn: jnp.ndarray, w: jnp.ndarray):
     # independent control points (the barycentric representation is exact and
     # the betas re-fit whatever basis is chosen), so a Cholesky factor of the
     # covariance — columns span the same space at matching scales — replaces
-    # the per-lane 3x3 eigh, whose TPU Jacobi lowering dominated the bank.
+    # the per-lane 3x3 eigh and its iterative Jacobi lowering.
     # Damping keeps planar point sets affinely independent (tiny 3rd column),
     # matching the reference's near-zero 3rd PCA axis behavior.
     c0 = jnp.sum(w[:, None] * pts3d, axis=0) / ws

@@ -4,13 +4,13 @@ Replaces the reference Optimizer::OptimizeEssentialGraph (src/Optimizer.cc:873
 — g2o VertexSim3Expmap / EdgeSim3 over loop + spanning-tree + strong-
 covisibility edges, 20 LM iterations) and Optimizer::OptimizeSim3 (:1173 —
 the two-keyframe Sim3 with fixed points and bidirectional reprojection
-edges). TPU-first: per-edge 7/14-dim Jacobians come from vmapped forward-mode
+edges). Batched: per-edge 7/14-dim Jacobians come from vmapped forward-mode
 autodiff of the Lie-group residual (no hand-derived Sim3 Jacobians). Two
 solver paths, auto-dispatched by `solve_pose_graph`:
 
   * dense (`optimize_pose_graph`): Hessian assembled via {0,1}-incidence
-    MXU matmuls into a (7K, 7K) system, one Cholesky per LM iteration —
-    fastest below ~192 keyframes;
+    matmuls into a (7K, 7K) system, one Cholesky per LM iteration — used
+    below 192 keyframes;
   * matrix-free (`optimize_pose_graph_cg`): block-Jacobi preconditioned CG
     applying H = J^T J edge-wise, O(E) memory — the g2o sparse block-solver
     role (Thirdparty/g2o/g2o/core/block_solver.hpp:51-90) at map scale.
@@ -103,20 +103,20 @@ def optimize_pose_graph(
     n_edges = edge_i.shape[0]
     # Hessian block assembly strategy (shapes are static, so this is a
     # trace-time decision). Small graphs: one-hot incidence (K, E) turns the
-    # block accumulation into MXU matmuls — TPU serializes the scatter
-    # lowering of .at[].add (~7 ms/iteration at K=256/E=1024 vs <0.2 ms).
+    # block accumulation into matmuls instead of .at[].add scatters (a
+    # design choice made for the accelerator this engine was first written
+    # for, whose scatter lowering serialized).
     # Per 7x7-block component c the contraction is a batched matmul
     # (oh_a * bab[:, c]) @ oh_b.T (batch dim c = 49) — never materializing a
     # rank-4 (K,7,E,7) intermediate. Diagonal (i,i)+(j,j) contributions run
     # as ONE batched matmul over the concatenated 2E incidence, and the
     # (j,i) blocks are the transpose of the (i,j) ones, so the whole H costs
-    # two batched matmuls. MXU precision is the default bf16 single pass:
-    # one-hot entries are exact in bf16 and the ~0.4% rounding of the block
-    # values only perturbs the LM model (H), never the decision sequence —
-    # acceptance tests against the exact f32 residual cost (measured 0.68 ms
-    # -> 0.11 ms per assembly vs the 6-pass "highest" lowering at
-    # K=256/E=1024). Large graphs: the one-hot FLOPs are O(49*K^2*E), so
-    # fall back to the O(E) scatter-add.
+    # two batched matmuls. H runs at "default" precision (TF32 on a GPU):
+    # one-hot entries are exact and the rounding of the block values only
+    # perturbs the LM model (H), never the decision sequence — acceptance
+    # tests against the exact f32 residual cost. The gradient and diag(H)
+    # are accumulated at "highest". Large graphs: the one-hot FLOPs are
+    # O(49*K^2*E), so fall back to the O(E) scatter-add.
     if assembly == "auto":
         use_onehot = k * n_edges <= 2_000_000
     else:
@@ -135,7 +135,7 @@ def optimize_pose_graph(
             outs = []
             for s in range(0, n_comp, comp_chunk):
                 lhs = oh_a[None] * bT[s : s + comp_chunk, None, :]
-                outs.append(jnp.einsum("cke,le->ckl", lhs, oh_b))
+                outs.append(jnp.einsum("cke,le->ckl", lhs, oh_b, precision="default"))
             return jnp.concatenate(outs, axis=0)
 
         def assemble_h(b_ii, b_jj, b_ij):
@@ -149,7 +149,7 @@ def optimize_pose_graph(
 
         def acc_g(g, oh_a, ja, r_w):
             # the gradient sets the step direction and the convergence test —
-            # keep BOTH contractions at full precision (only H is bf16)
+            # keep BOTH contractions at full precision (only H is rounded)
             return g + jnp.matmul(
                 oh_a,
                 jnp.einsum("eri,er->ei", ja, r_w, precision="highest"),
@@ -189,9 +189,8 @@ def optimize_pose_graph(
         g = jnp.zeros((k, 7), jnp.float32)
         g = acc_g(g, key_i, j_i, r_w)
         g = acc_g(g, key_j, j_j, r_w)
-        # diag(H) from the per-edge block diagonals — jnp.diag on a (7K, 7K)
-        # matrix lowers to a serialized strided gather on TPU (~0.7 ms at
-        # K=256); this (K, 2E) @ (2E, 7) matmul is free by comparison.
+        # diag(H) from the per-edge block diagonals, as one (K, 2E) @ (2E, 7)
+        # matmul instead of a strided jnp.diag gather of the (7K, 7K) matrix.
         d_cat = jnp.concatenate(
             [
                 b_ii[:, jnp.arange(7), jnp.arange(7)],
@@ -200,7 +199,7 @@ def optimize_pose_graph(
             axis=0,
         )  # (2E, 7)
         if use_onehot:
-            dvec = oh_cat @ d_cat
+            dvec = jnp.matmul(oh_cat, d_cat, precision="highest")
         else:
             dvec = jnp.zeros((k, 7), jnp.float32)
             dvec = dvec.at[edge_i].add(d_cat[:n_edges])
@@ -222,12 +221,12 @@ def optimize_pose_graph(
         # g already have zero rows/cols there — folding the unit diagonal of
         # the fixed block into the damping term (1 - fmask) keeps the damped
         # system SPD without any full (7K, 7K) masking passes. The damping
-        # add itself is a fused iota-select pass (jnp.diag construction is a
-        # serialized scatter on TPU, ~0.7 ms at K=256).
+        # add itself is a fused iota-select pass instead of a jnp.diag
+        # construction.
         damp = lam * dvec + 1e-8 + (1.0 - fmask)
         hmat = jnp.where(on_diag, h + damp[None, :], h)
 
-        # damped H is SPD: one Cholesky beats LU-with-pivoting on TPU
+        # damped H is SPD: Cholesky, no pivoting needed
         cf = jax.scipy.linalg.cho_factor(hmat)
         dx = -jax.scipy.linalg.cho_solve(cf, g).reshape(k, 7)
         dx = dx * free[:, None]
@@ -274,7 +273,7 @@ def optimize_pose_graph_cg(
     """O(E)-memory essential-graph LM: the normal equations are never
     materialized — each CG iteration applies H = J^T J edge-wise (two batched
     (E, 7, 7) block products + index adds) with a block-Jacobi (per-vertex
-    7x7) preconditioner. This is the TPU replacement for g2o's sparse block
+    7x7) preconditioner. This is the batched replacement for g2o's sparse block
     solver (Thirdparty/g2o/g2o/core/block_solver.hpp:51-90) at map sizes
     where the dense (7K)^2 Hessian of `optimize_pose_graph` would be O(K^2)
     memory / O(K^3) per iteration; same recipe as parallel/dist_ba.py's
@@ -286,10 +285,11 @@ def optimize_pose_graph_cg(
         w_e = w_e * edge_weight
 
     n_edges = edge_i.shape[0]
-    # Accumulation strategy for the per-CG-iteration J^T(Jx) reduction: TPU
-    # serializes the scatter lowering of .at[].add, and the matvec runs
-    # ~100x per LM iteration — route it through {0,1}-incidence matmuls
-    # (2 x (K, E) f32, exact) whenever that buffer fits comfortably in HBM.
+    # Accumulation strategy for the per-CG-iteration J^T(Jx) reduction: the
+    # matvec runs ~100x per LM iteration, so route it through
+    # {0,1}-incidence matmuls at "highest" precision (2 x (K, E) f32, exact
+    # sums of f32 values) instead of .at[].add scatters whenever that buffer
+    # fits comfortably in device memory.
     use_onehot = k * n_edges <= (1 << 24)  # 2 x 64 MB f32 at the limit
     if use_onehot:
         oh_i = (edge_i[None, :] == jnp.arange(k)[:, None]).astype(jnp.float32)
@@ -298,7 +298,8 @@ def optimize_pose_graph_cg(
     def scatter7(vals_i, vals_j):
         """(E, C) per-edge contributions -> (K, C) vertex sums."""
         if use_onehot:
-            return oh_i @ vals_i + oh_j @ vals_j
+            return (jnp.matmul(oh_i, vals_i, precision="highest")
+                    + jnp.matmul(oh_j, vals_j, precision="highest"))
         out = jnp.zeros((k, vals_i.shape[1]), jnp.float32)
         return out.at[edge_i].add(vals_i).at[edge_j].add(vals_j)
 
@@ -402,9 +403,9 @@ def optimize_pose_graph_cg(
     return PoseGraphResult(poses=p, cost=err)
 
 
-# above this many vertices the matrix-free CG solver wins (measured TPU v5e
-# crossover: dense 10.6 ms vs CG 14.2 ms at K=128; dense 36.1 ms vs CG
-# 24.6 ms at K=256) and the dense path's O(K^2) memory starts to bite
+# above this many vertices the matrix-free CG solver is used: the dense
+# path's O(K^2) memory and O(K^3) solve start to bite (the crossover was
+# chosen on another accelerator and has not been measured on a GPU)
 DENSE_VERTEX_LIMIT = 192
 
 

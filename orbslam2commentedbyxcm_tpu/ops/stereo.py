@@ -7,7 +7,7 @@ filter is a known bug, SURVEY.md intro):
   reference (per-keypoint loops)             this module (batched)
   ----------------------------------         ---------------------------------
   per-row candidate lists                    dense row-band + disparity mask
-  coarse per-pair Hamming loop               one MXU Hamming matrix
+  coarse per-pair Hamming loop               one matmul Hamming matrix
   per-kp SAD slide (11x11, +-5)              contiguous (11, 128) panel-block
                                              gathers + one-hot column extract,
                                              slide as 11 static slices
@@ -67,12 +67,13 @@ def stereo_match(
     coarse_ok = best_d <= TH_ORB
 
     # --- fine: SAD slide around the coarse match --------------------------
-    # TPU element gathers serialize: the naive (N, 11, 11, 11) right-patch
-    # gather measured 19.8 ms for 1333 features. Instead gather ONE
-    # contiguous (11, 128) row window per feature from overlapping 128-wide
-    # column panels (stride 64, the ops/descriptors trick), extract the SAD
-    # columns with a one-hot MXU contraction, and express the +-5 slide as
-    # 11 static slices of the extracted region — 0.35 ms total.
+    # Instead of the naive (N, 11, 11, 11) right-patch element gather,
+    # gather ONE contiguous (11, 128) row window per feature from
+    # overlapping 128-wide column panels (stride 64, the ops/descriptors
+    # trick), extract the SAD columns with a one-hot contraction, and
+    # express the +-5 slide as 11 static slices of the extracted region (a
+    # design choice made for the accelerator this engine was first written
+    # for, whose element gathers serialized).
     wside = 2 * SAD_W + 1   # 11
     u0 = jnp.round(r_uv[best_r, 0]).astype(jnp.int32)
     vl = jnp.round(l_uv[:, 1]).astype(jnp.int32)

@@ -1,6 +1,6 @@
 """Two-view monocular bootstrap: batched H/F RANSAC + model select + reconstruction.
 
-TPU-first re-design of the reference Initializer (src/Initializer.cc):
+Batched re-design of the reference Initializer (src/Initializer.cc):
 the reference runs two std::threads estimating H and F with 200 RANSAC
 iterations each (:133-139); here every hypothesis is a lane of a `vmap` — all
 200 H-DLTs and 200 F-8-points are two batched SVDs, scoring is a dense
@@ -37,11 +37,11 @@ def smallest_eigvec_psd(g: jnp.ndarray, iters: int = 10, eps: float = 1e-6) -> j
     """Unit eigenvector of the smallest eigenvalue of batched symmetric PSD
     matrices g (..., d, d) via Cholesky-backed inverse iteration.
 
-    TPU-first replacement for the small-matrix SVD null-space extraction the
+    Batched replacement for the small-matrix SVD null-space extraction the
     reference gets from OpenCV (cv::SVD in Initializer::ComputeH21/ComputeF21,
-    src/Initializer.cc:241-287): XLA's TPU SVD lowering is one-sided Jacobi
-    and dominates two-view init; a damped Cholesky + a fixed number of
-    triangular solves is pure batched arithmetic. For a DLT system A x = 0 the
+    src/Initializer.cc:241-287): XLA lowers small batched SVDs to iterative
+    Jacobi sweeps, while a damped Cholesky + a fixed number of triangular
+    solves is pure batched arithmetic. For a DLT system A x = 0 the
     caller passes g = A^T A. Degenerate samples (multiple near-zero
     eigenvalues) return an arbitrary null-space vector — those hypotheses
     score poorly and lose the RANSAC vote, exactly like the reference's."""

@@ -9,7 +9,7 @@ BASELINE.json configs[4]):
     mesh 'data' axis — a landmark's 3x3 Hessian block and its Schur
     contribution are computed entirely on its home device;
   * the reduced camera system S = Hcc - W Hpp^-1 W^T and gradient are formed
-    per-shard and combined with one psum (rides ICI);
+    per-shard and combined with one psum;
   * the dense 6K x 6K pose solve is replicated (poses are the small axis);
   * landmark updates back-substitute locally — no communication.
 
@@ -24,8 +24,8 @@ Two solver paths:
     edge-wise with segment-sums and reduces ONE K*6 vector with psum
     (Jacobi-preconditioned). Communication per LM iteration is
     O(n_cg * K * 6) floats and memory is O(E + K + P) — this is the
-    pod-scale global-BA path; with K=10k keyframes a CG step moves 240 KB
-    over ICI instead of the dense path's 14 GB.
+    large-map global-BA path; with K=10k keyframes a CG step moves 240 KB
+    between devices instead of the dense path's 14 GB.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def distributed_bundle_adjustment(
     use_huber: bool = True,
 ):
     """One BA solve over the mesh. Returns (poses, pts_sh, cost)."""
-    axis = tuple(mesh.axis_names)  # psum over every mesh axis (ICI and, multi-host, DCN)
+    axis = tuple(mesh.axis_names)  # psum over every mesh axis
     k_poses = poses.shape[0]
     free_pose = ~pose_fixed
 
@@ -165,8 +165,8 @@ def distributed_bundle_adjustment(
             jw_pose = j_pose * w[..., None, None]
             jw_point = j_point * w[..., None, None]
 
-            # one-hot MXU accumulation instead of segment_sum/scatter (TPU
-            # serializes scatters — see ops/optim.bundle_adjustment)
+            # one-hot accumulation instead of segment_sum/scatter, at the
+            # precisions of ops/optim.bundle_adjustment (see there)
             oh_k = (op[None, :] == jnp.arange(k_poses)[:, None]).astype(jnp.float32)
             oh_p = (opt_[None, :] == jnp.arange(p_pts)[:, None]).astype(jnp.float32)
             e_hcc = jnp.einsum("eij,eik->ejk", jw_pose, j_pose, precision="highest")
@@ -182,7 +182,7 @@ def distributed_bundle_adjustment(
             g_c = jnp.einsum("ke,ex->kx", oh_k, e_gc, precision="highest")
             g_p = jnp.einsum("pe,ex->px", oh_p, e_gp, precision="highest")
             # per 6x3-block component: (K,E)x(E,P) matmul, batched over the
-            # 18 components as ONE MXU contraction (a lax.scan here would
+            # 18 components as ONE contraction (a lax.scan here would
             # serialize 18 launches per LM iteration) — no (K,E,6,3)
             # intermediate (see ops/optim.bundle_adjustment)
             w_blk = jnp.einsum("eij,eik->ejk", jw_pose, j_point, precision="highest")
@@ -190,6 +190,7 @@ def distributed_bundle_adjustment(
                 "cke,pe->ckp",
                 oh_k[None] * w_blk.reshape(-1, 18).T[:, None, :],
                 oh_p,
+                precision="default",
             )
             w_cp = w_parts.reshape(6, 3, k_poses, p_pts).transpose(2, 3, 0, 1)
             hpp_d = hpp + lam * jax.vmap(jnp.diag)(jax.vmap(jnp.diag)(hpp)) + 1e-6 * jnp.eye(3)
@@ -237,10 +238,7 @@ def distributed_bundle_adjustment(
         poses_out, pts_out, _, err = carry
         return poses_out, pts_out[None], err
 
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     sharded = shard_map(
         shard_fn,
@@ -277,7 +275,7 @@ def distributed_bundle_adjustment_cg(
     Jacobi-preconditioned CG whose matvec is assembled edge-wise per shard
     and psum-reduced, so nothing of size (K*6)^2 or (K, P) ever exists.
     """
-    axis = tuple(mesh.axis_names)  # psum over every mesh axis (ICI and, multi-host, DCN)
+    axis = tuple(mesh.axis_names)  # psum over every mesh axis
     k_poses = poses.shape[0]
 
     def shard_fn(poses, pose_fixed, pts, pv, op, opt_, ouv, om, osig):
@@ -439,10 +437,7 @@ def distributed_bundle_adjustment_cg(
         poses_out, pts_out, _, err = carry
         return poses_out, pts_out[None], err
 
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     sharded = shard_map(
         shard_fn,

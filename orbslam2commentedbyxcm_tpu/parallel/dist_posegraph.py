@@ -3,9 +3,8 @@
 Scales the essential-graph solve (ops/posegraph) across a device mesh the
 same way parallel/dist_ba shards bundle adjustment: EDGES are partitioned
 over the mesh, poses are replicated, and each matrix-free CG iteration
-reduces exactly ONE (K, 7) vector with a psum (rides ICI within a slice;
-over a hybrid ('dcn', 'ici') mesh XLA reduces within slices first). Nothing
-of size O(K^2) or O(E_total) ever exists on a single device.
+reduces exactly ONE (K, 7) vector with a psum. Nothing of size O(K^2) or
+O(E_total) ever exists on a single device.
 
 This is the multi-chip form of g2o's sparse block solver role for
 OptimizeEssentialGraph (reference src/Optimizer.cc:873,
@@ -20,6 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from orbslam2commentedbyxcm_tpu.ops.posegraph import (
@@ -28,11 +28,6 @@ from orbslam2commentedbyxcm_tpu.ops.posegraph import (
 )
 from orbslam2commentedbyxcm_tpu.parallel.dist_ba import make_mesh
 from orbslam2commentedbyxcm_tpu.utils.geometry import sim3_exp
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 
 def shard_posegraph_problem(edge_i, edge_j, edge_meas, edge_mask, mesh: "jax.sharding.Mesh"):

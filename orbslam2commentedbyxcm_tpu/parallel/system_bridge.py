@@ -1,8 +1,8 @@
 """Live-pipeline bridge to the distributed solvers.
 
-VERDICT r3 Missing #1: the landmark-sharded BA (parallel/dist_ba) and the
-edge-sharded pose graph (parallel/dist_posegraph) were a complete library but
-unreachable from the running System. This module adapts the pipeline's
+The landmark-sharded BA (parallel/dist_ba) and the edge-sharded pose graph
+(parallel/dist_posegraph) are reached from the running System through this
+module. It adapts the pipeline's
 problem dicts (models/local_mapping.assemble_ba_problem) and pose-graph edge
 lists to the sharded solvers, so `System(mesh=...)` routes:
 

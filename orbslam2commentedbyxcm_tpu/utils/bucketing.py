@@ -3,7 +3,7 @@
 Every distinct input shape costs one XLA compilation. Host code that feeds
 the device with whatever-length arrays (loop-closing matches, pose-graph
 sizes, candidate sets) compiles hundreds of near-identical programs over a
-run — slow on TPU (remote compiles) and fatal on XLA:CPU, whose LLVM JIT
+run — slow everywhere and fatal on XLA:CPU, whose LLVM JIT
 exhausts process memory maps after enough programs. All variable-size call
 sites pad to `bucket(n)` with an explicit validity mask instead.
 """

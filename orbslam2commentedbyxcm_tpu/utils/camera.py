@@ -91,7 +91,7 @@ class Camera:
     def undistort_points(self, uv: jnp.ndarray, iters: int = 8) -> jnp.ndarray:
         """Undistort pixel keypoints (..., 2) by fixed-point iteration.
 
-        TPU-friendly replacement for cv::undistortPoints as used in
+        Batched replacement for cv::undistortPoints as used in
         Frame::UndistortKeyPoints (src/Frame.cc:586-628): fixed trip count,
         no data-dependent control flow.
         """

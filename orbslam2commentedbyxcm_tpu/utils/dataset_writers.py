@@ -33,9 +33,9 @@ from orbslam2commentedbyxcm_tpu.utils.rectify import (
 
 
 def _imwrite(path: str, img: np.ndarray):
-    import cv2
+    from orbslam2commentedbyxcm_tpu.utils.datasets import require_cv2
 
-    cv2.imwrite(path, img)
+    require_cv2("writing dataset images").imwrite(path, img)
 
 
 def _write_settings_yaml(path: str, cam: Camera, n_features: int = 800,

@@ -13,13 +13,21 @@ import os
 
 import numpy as np
 
-try:
-    import cv2
-except ImportError:  # pragma: no cover
-    cv2 = None
+
+def require_cv2(purpose: str):
+    """OpenCV, which only image-file and video I/O use. The SLAM path itself
+    needs JAX, numpy and scipy alone, so OpenCV is imported on demand."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"{purpose} needs OpenCV; install the opencv-python package"
+        ) from e
+    return cv2
 
 
 def _imread_gray(path: str) -> np.ndarray:
+    cv2 = require_cv2("reading dataset images")
     img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
     if img is None:
         raise FileNotFoundError(path)
@@ -68,6 +76,7 @@ class TumRgbdDataset:
     def __getitem__(self, i):
         fr = self.frames[i]
         img = _imread_gray(fr.rgb_path)
+        cv2 = require_cv2("reading dataset depth maps")
         depth = cv2.imread(fr.depth_path, cv2.IMREAD_UNCHANGED).astype(np.float32)
         depth = np.where(depth > 0, depth / self.depth_factor, -1.0)
         return fr.timestamp, img, depth

@@ -15,7 +15,7 @@ Conventions:
     s = exp(sigma).
   * Quaternions are (..., 4) in (w, x, y, z) order.
 
-All math is float32 (TPU native); the small-angle branches use Taylor
+All math is float32; the small-angle branches use Taylor
 expansions selected with jnp.where so everything stays traceable.
 """
 
@@ -315,9 +315,9 @@ def sim3_exp(xi: jnp.ndarray) -> jnp.ndarray:
 def _solve3x3(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Closed-form cofactor solve of a batched 3x3 system m x = v.
 
-    jnp.linalg.solve lowers to a pivoted LU that TPU serializes per lane —
-    under vmapped jacfwd (14 tangents per pose-graph edge) that dominated
-    sim3_log; the adjugate formula is pure elementwise math."""
+    jnp.linalg.solve lowers to a pivoted LU per lane — under vmapped jacfwd
+    (14 tangents per pose-graph edge) that is the bulk of sim3_log; the
+    adjugate formula is pure elementwise math."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]

@@ -5,7 +5,7 @@ tests and benchmarks run on synthetic sequences: a scene of textured fronto-
 parallel planes rendered through exact plane-induced homographies
 H = K (R - t n^T / d) K^-1. Geometry is exact (no approximation), so tracking
 accuracy (ATE) measures the SLAM stack, not the renderer. Real-dataset loaders
-live in utils/datasets.py.
+live in utils/datasets.py. Rendering needs numpy only (`warp_perspective`).
 """
 
 from __future__ import annotations
@@ -14,12 +14,38 @@ import dataclasses
 
 import numpy as np
 
-try:
-    import cv2
-except ImportError:  # pragma: no cover
-    cv2 = None
-
 from orbslam2commentedbyxcm_tpu.utils.camera import Camera
+
+def warp_perspective(src: np.ndarray, h: np.ndarray, width: int, height: int,
+                     border: float = -1.0) -> np.ndarray:
+    """Bilinear inverse-homography warp of a float32 image into (height, width).
+
+    Output pixel (x, y) samples `src` at H^-1 (x, y, 1); taps that fall
+    outside `src` read `border`, and pixels whose whole 2x2 footprint is
+    outside get `border` (OpenCV's warpPerspective with INTER_LINEAR and
+    BORDER_CONSTANT, which this matches to about 0.03 grey levels).
+    """
+    m = np.linalg.inv(np.asarray(h, np.float64))
+    xs = np.arange(width, dtype=np.float64)[None, :]
+    ys = np.arange(height, dtype=np.float64)[:, None]
+    w = m[2, 0] * xs + m[2, 1] * ys + m[2, 2]
+    w = np.where(w != 0, 1.0 / np.where(w != 0, w, 1.0), 0.0)
+    sx = np.clip((m[0, 0] * xs + m[0, 1] * ys + m[0, 2]) * w, -1e9, 1e9)
+    sy = np.clip((m[1, 0] * xs + m[1, 1] * ys + m[1, 2]) * w, -1e9, 1e9)
+    x0, y0 = np.floor(sx), np.floor(sy)
+    ax, ay = (sx - x0).astype(np.float32), (sy - y0).astype(np.float32)
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    src = np.asarray(src, np.float32)
+    sh, sw = src.shape
+    out = np.zeros((height, width), np.float32)
+    for dy, wy in ((0, 1.0 - ay), (1, ay)):
+        for dx, wx in ((0, 1.0 - ax), (1, ax)):
+            yy, xx = y0 + dy, x0 + dx
+            inside = (yy >= 0) & (yy < sh) & (xx >= 0) & (xx < sw)
+            tap = np.where(inside, src[np.clip(yy, 0, sh - 1), np.clip(xx, 0, sw - 1)], border)
+            out += wy * wx * tap
+    far = (x0 >= sw) | (x0 + 1 < 0) | (y0 >= sh) | (y0 + 1 < 0)
+    return np.where(far, np.float32(border), out)
 
 
 def _make_texture(rng, size, n_blobs=4000):
@@ -48,8 +74,6 @@ class SyntheticSequence:
     tex_size: int = 1024
 
     def __post_init__(self):
-        if cv2 is None:
-            raise RuntimeError("synthetic sequence rendering requires cv2")
         rng = np.random.default_rng(self.seed)
         self.textures = [_make_texture(rng, self.tex_size) for _ in self.depths]
         # world->texture-pixel affine per plane: u_tex = s * (x + e), v_tex = s * (y + e)
@@ -108,10 +132,7 @@ class SyntheticSequence:
             a = np.array([[1 / s, 0, -e], [0, 1 / s, -e], [0, 0, 1]])  # tex uv1 -> (x, y, 1)
             m = np.column_stack([r[:, 0], r[:, 1], r[:, 2] * depth + t])  # (x,y,1)->cam
             h = k @ m @ a
-            warped = cv2.warpPerspective(
-                tex, h, (cam.width, cam.height), flags=cv2.INTER_LINEAR,
-                borderMode=cv2.BORDER_CONSTANT, borderValue=-1.0,
-            )
+            warped = warp_perspective(tex, h, cam.width, cam.height)
             img = np.where(warped >= 0, warped, img)
         return img.astype(np.float32)
 
@@ -170,8 +191,6 @@ class BoxSequence:
     trajectory: str = "orbit"
 
     def __post_init__(self):
-        if cv2 is None:
-            raise RuntimeError("synthetic sequence rendering requires cv2")
         rng = np.random.default_rng(self.seed)
         h = self.half_size
         # walls: (center, e1 (u axis), e2 (v axis)); normals point inward
@@ -261,10 +280,7 @@ class BoxSequence:
             zc = (r @ c + t)[2]
             if zc < 0.3:
                 continue
-            warped = cv2.warpPerspective(
-                tex, hmg, (cam.width, cam.height), flags=cv2.INTER_LINEAR,
-                borderMode=cv2.BORDER_CONSTANT, borderValue=-1.0,
-            )
+            warped = warp_perspective(tex, hmg, cam.width, cam.height)
             img = np.where((warped >= 0) & (img < 0), warped, img)
         return np.where(img < 0, 64.0, img).astype(np.float32)
 

@@ -4,7 +4,7 @@ Replaces the reference's Pangolin Viewer/MapDrawer/FrameDrawer stack
 (src/Viewer.cc, src/MapDrawer.cc, src/FrameDrawer.cc) with offline renders:
 a top-down map plot (points, keyframe frusta, covisibility edges, trajectory)
 and a frame overlay (keypoints + tracked matches + status line). Interactive
-GL windows are a non-goal on headless TPU hosts; the `Viewer` class instead
+GL windows are a non-goal on headless accelerator hosts; the `Viewer` class instead
 emits periodic PNG frames to a directory (usable as a live view over any
 file watcher, or assembled into a video).
 """

@@ -24,9 +24,10 @@ from orbslam2commentedbyxcm_tpu.ops import bow
 
 
 def train_from_images(image_paths, n_features=1000, k=10, depth=4, **kw) -> bow.Vocabulary:
-    import cv2
-
     from orbslam2commentedbyxcm_tpu.ops.orb import ORBExtractor
+    from orbslam2commentedbyxcm_tpu.utils.datasets import require_cv2
+
+    cv2 = require_cv2("reading training images")
 
     ext = ORBExtractor(n_features=n_features)
     descs = []

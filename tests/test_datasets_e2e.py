@@ -40,7 +40,6 @@ def _run_example(args):
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_force_host_platform_device_count=1").strip()
-    env.setdefault("JAX_TEST_CACHE", "/tmp/orbslam2_tpu_jax_cache")
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, "examples", "run_dataset.py"),
          *args],

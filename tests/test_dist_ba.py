@@ -178,68 +178,3 @@ def test_cg_variant_with_stereo_and_invalid_edges(rng):
     np.testing.assert_allclose(out_poses[0], poses[0], atol=1e-6)  # fixed stays
     for i in range(1, k):
         assert pose_err(out_poses[i], poses[i]) < 0.02
-
-
-@pytest.mark.slow  # multi-shard solves: system tier
-def test_hybrid_dcn_ici_mesh(rng):
-    """Distributed BA over a 2x4 ('dcn', 'ici') hybrid mesh — the multi-host
-    layout from parallel/multihost — converges to the same optimum as flat."""
-    if len(jax.devices()) < 8:
-        pytest.skip("not enough devices")
-    from orbslam2commentedbyxcm_tpu.parallel import multihost
-
-    poses, pts, op, opt_, ouv = make_ba_problem(rng, n_poses=5, n_pts=96)
-    k, p = len(poses), len(pts)
-    from orbslam2commentedbyxcm_tpu.utils import geometry as geo
-
-    poses_0 = poses.copy()
-    for i in range(1, k):
-        poses_0[i] = np.asarray(
-            geo.se3_exp(jnp.asarray(rng.normal(0, 0.02, 6).astype(np.float32)))
-        ) @ poses[i]
-    pts_0 = pts + rng.normal(0, 0.05, pts.shape).astype(np.float32)
-    fixed = np.zeros(k, bool)
-    fixed[0] = True
-
-    mesh = multihost.make_mesh_2d(2, 4)
-    assert mesh.axis_names == ("dcn", "ici")
-    sh = dist_ba.shard_ba_problem(
-        pts_0, np.ones(p, bool), op, opt_, ouv, np.ones(len(op), bool),
-        np.ones(len(op), np.float32), 8,
-    )
-    pts_sh, pv_sh, gidx_sh, op_sh, opt_sh, ouv_sh, om_sh, osig_sh = sh
-    for fn in (dist_ba.distributed_bundle_adjustment,):
-        out_poses, _, err = fn(
-            mesh, jnp.asarray(poses_0), jnp.asarray(fixed),
-            jnp.asarray(pts_sh), jnp.asarray(pv_sh),
-            jnp.asarray(op_sh), jnp.asarray(opt_sh), jnp.asarray(ouv_sh),
-            jnp.asarray(om_sh), jnp.asarray(osig_sh),
-            FX, FY, CX, CY, BF, n_iters=12,
-        )
-        out_poses = np.asarray(out_poses)
-        for i in range(1, k):
-            rel_est = out_poses[i] @ np.linalg.inv(out_poses[i - 1])
-            rel_gt = poses[i] @ np.linalg.inv(poses[i - 1])
-            assert pose_err(rel_est, rel_gt) < 0.02, f"rel pose {i} (hybrid mesh)"
-    # CG variant on the same hybrid mesh
-    out_poses_cg, _, _ = dist_ba.distributed_bundle_adjustment_cg(
-        mesh, jnp.asarray(poses_0), jnp.asarray(fixed),
-        jnp.asarray(pts_sh), jnp.asarray(pv_sh),
-        jnp.asarray(op_sh), jnp.asarray(opt_sh), jnp.asarray(ouv_sh),
-        jnp.asarray(om_sh), jnp.asarray(osig_sh),
-        FX, FY, CX, CY, BF, n_iters=12, n_cg=24,
-    )
-    out_poses_cg = np.asarray(out_poses_cg)
-    for i in range(1, k):
-        rel_est = out_poses_cg[i] @ np.linalg.inv(out_poses_cg[i - 1])
-        rel_gt = poses[i] @ np.linalg.inv(poses[i - 1])
-        assert pose_err(rel_est, rel_gt) < 0.02, f"rel pose {i} (hybrid CG)"
-
-
-def test_multihost_single_process_mesh():
-    from orbslam2commentedbyxcm_tpu.parallel import multihost
-
-    assert multihost.initialize() is False  # no env vars -> single process
-    mesh = multihost.make_hybrid_mesh()
-    assert mesh.axis_names == ("ici",)
-    assert mesh.devices.size == len(jax.devices())

@@ -53,13 +53,13 @@ def test_sharded_matches_single_device(n_dev):
 
 @pytest.mark.slow  # hybrid mesh solve: system tier
 def test_hybrid_mesh_edge_padding():
-    """Non-divisible edge count on a 2x4 ('dcn','ici') hybrid mesh: padded
-    edges are masked and the optimum is unchanged."""
+    """Non-divisible edge count on a 2x4 two-axis mesh: padded edges are
+    masked and the optimum is unchanged."""
     from jax.sharding import Mesh
 
     p0, fixed, ei, ej, meas, mask = _problem(k=32, e=131)  # 131 % 8 != 0
     devs = np.array(jax.devices()[:8]).reshape(2, 4)
-    mesh = Mesh(devs, ("dcn", "ici"))
+    mesh = Mesh(devs, ("outer", "inner"))
     sharded_args = shard_posegraph_problem(ei, ej, meas, mask, mesh)
     dist = distributed_pose_graph(
         p0, jnp.asarray(fixed), *sharded_args, mesh=mesh, n_iters=25,

@@ -3,9 +3,10 @@
 The Pallas kernel (ops/pallas_poseopt.py) must reproduce the XLA
 implementation of reference Optimizer::PoseOptimization
 (src/Optimizer.cc:299-502) — same pose to f32 tolerance, same inlier
-relabeling — while running as ONE kernel launch. On CPU it runs in
-interpreter mode; the TPU-compiled path is exercised by bench.py and the
-driver's compile check.
+relabeling — while running as ONE kernel launch. On the CPU it runs in
+interpreter mode; the compiled GPU kernel is checked by the `gpu`-marked
+test below and by chip_smoke.py on the card. Also: which implementation
+`pose_optimization` picks on which backend.
 """
 
 import numpy as np
@@ -82,3 +83,68 @@ def test_fused_unpadded_edges_ignored(rng):
     assert res.inliers.shape == (300,)
     assert int(res.n_inliers) == int(np.asarray(res.inliers).sum())
     assert np.isfinite(float(res.chi2))
+
+
+def _stub_kernel(monkeypatch, backend):
+    """Report `backend` as JAX's default and record calls of the kernel."""
+    import jax
+
+    from orbslam2commentedbyxcm_tpu.ops import pallas_poseopt
+
+    calls = []
+
+    def fake_kernel(t_cw, pts_w, *args, interpret=False, **kw):
+        calls.append(interpret)
+        n = pts_w.shape[0]
+        return t_cw, jnp.ones(n, bool), jnp.int32(n), jnp.float32(0.0)
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    monkeypatch.setattr(pallas_poseopt, "pose_optimization_fused", fake_kernel)
+    return calls
+
+
+def _args(rng):
+    t0, pts, obs, mask, _ = _make_problem(rng, n=64)
+    return (jnp.asarray(t0), jnp.asarray(pts), jnp.asarray(obs), jnp.asarray(mask),
+            jnp.ones(64, jnp.float32), FX, FY, CX, CY, BF)
+
+
+def test_gpu_backend_picks_the_kernel(rng, monkeypatch):
+    calls = _stub_kernel(monkeypatch, "gpu")
+    optim.pose_optimization(*_args(rng))
+    assert calls == [False]  # compiled kernel, not the interpreter
+
+
+def test_cpu_backend_picks_xla(rng, monkeypatch):
+    calls = _stub_kernel(monkeypatch, "cpu")
+    res = optim.pose_optimization(*_args(rng))
+    assert calls == [] and res.inliers.shape == (64,)
+
+
+@pytest.mark.parametrize("backend", ["cpu", "METAL"])
+def test_explicit_pallas_off_gpu_raises(rng, monkeypatch, backend):
+    calls = _stub_kernel(monkeypatch, backend)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        optim.pose_optimization(*_args(rng), impl="pallas")
+    assert calls == []
+
+
+def test_padding_is_a_power_of_two():
+    from orbslam2commentedbyxcm_tpu.ops.pallas_poseopt import padded_edges
+
+    assert [padded_edges(n) for n in (1, 300, 1000, 1024, 2000)] == [128, 512, 1024, 1024, 2048]
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla(gpu, rng):
+    """The compiled (not interpreted) kernel on the card, at 1000 features."""
+    t0, pts, obs, mask, t_true = _make_problem(rng, n=1000)
+    args = (jnp.asarray(t0), jnp.asarray(pts), jnp.asarray(obs), jnp.asarray(mask),
+            jnp.ones(1000, jnp.float32), FX, FY, CX, CY, BF)
+    import jax
+
+    with jax.default_matmul_precision("highest"):
+        res_x = optim.pose_optimization(*args, impl="xla")
+    res_p = optim.pose_optimization(*args, impl="pallas")
+    assert np.abs(np.asarray(res_x.t_cw) - np.asarray(res_p.t_cw)).max() < 2e-3
+    assert (np.asarray(res_x.inliers) != np.asarray(res_p.inliers)).sum() <= 10

@@ -1,4 +1,4 @@
-"""Both pose-graph Hessian assembly paths (MXU one-hot / scatter-add) must
+"""Both pose-graph Hessian assembly paths (one-hot matmul / scatter-add) must
 converge to the same optimum — ADVICE r1 regression for the O(K*E*49)
 intermediate removal and the large-graph scatter fallback."""
 
